@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # full size: 1,000,000 x 128 planted
 
-The main path is the paper's: build a BC-Tree over the data, then answer
-exact top-k point-to-hyperplane queries through the hand-written CUDA sweep
-kernel.  Phases, one line each:
+Two paths, each through the entry points a user calls, each with its own
+hand-written CUDA kernel:
+
+  * slice 1, the paper's: build a BC-Tree over the data, then answer exact
+    top-k point-to-hyperplane queries (``P2HIndex.query(method="kernel")``)
+    through the sweep kernel K1 (``csrc/p2h_sweep.cu``);
+  * slice 2, the mutable index's read path: a ``MutableP2HIndex`` of 8
+    sealed segments (7 rounds of ``insert_batch`` + ``compact`` after the
+    bulk load), a live delta and deletes over every segment, queried with
+    ``method="stacked"`` through the stacked kernel K2
+    (``csrc/stacked_sweep.cu``) in each probe mode.
+
+Phases, one line each:
 
   1. platform   the card (nvidia-smi name and power limit), precision
-  2. build      nvcc for sm_90a, with ptxas' registers/shared memory/spills
+  2. build      one nvcc per kernel source, all started together, for
+                sm_90a, with ptxas' registers/shared memory/spills
   3. data       host build of the data and the tree; index size
-  4. kernel     the CUDA kernel against its plain PyTorch version on the
-                same operands: distances, ids (apart from ties), skip counts
+  4. kernel     K1 against its plain PyTorch version on the same operands:
+                distances, ids (apart from ties), skip counts
   5. query      ``P2HIndex.query(method="kernel")`` on every query against
                 the brute-force oracle, with the launch count of that run;
                 ``sweep`` and ``dfs`` on a few queries; every exact route's
@@ -19,9 +30,20 @@ kernel.  Phases, one line each:
                 distances (``assert_exact_topk``), and the f32 oracle's own
                 distance from a float64 oracle measured;
                 ``beam`` with its recall
-  6. timing     CUDA-event times of the kernel, of phase 1, of the plain
-                version and of a brute-force scan, beside the kernel's bound
-  7. kernels    one JSON line: per kernel its launches, error and times
+  6. timing     CUDA-event times of K1, of phase 1, of the plain version
+                and of a brute-force scan, beside the kernel's bound
+  7. stacked    the mutable index: build time, segments, tiles, the
+                stacked planes' bytes; per probe mode (f32 two-pass,
+                one pass, bf16 probe, int8 probe) the whole ``query`` held
+                to the oracle over the live set, its launches counted
+                (K2 twice for a two-pass query, once for one pass, K1
+                never); the bf16/int8 answers equal the f32 ones bit for
+                bit; the sequential walk (K1 with caps) on a few queries
+                equals the stacked answer; every K2 launch of those runs
+                replayed against its plain version: distances bit for bit,
+                skip counts equal; CUDA-event times, bounds, the plain
+                version's time and a brute-force scan of the live set
+  8. kernels    one JSON line: per kernel its launches, error and times
 
 then the card's nvidia-smi line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -31,6 +53,7 @@ arguments; ``run`` takes smaller sizes for a rehearsal on the host.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,10 +64,14 @@ import numpy as np
 
 K, BQ, SEED, BEAM_FRAC = 10, 8, 0, 0.05
 RTOL, ATOL = 1e-5, 1e-6
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the
-# tensor cores (dense), at the full 700 W power limit
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth; dense peaks by input type
+# (f32 outside the tensor cores), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_OPS = {"f32": PEAK_F32_FLOPS, "bf16": 989e12, "int8": 1979e12}
+# the stacked index: rounds of bulk inserts (one sealed segment each),
+# fresh points left in the delta, deleted gids, sequential-walk queries
+ROUNDS, FRESH, DELETES, SEQ_QUERIES = 8, 4096, 10_000, 64
 SRC = Path(__file__).resolve().parent / "src"
 
 
@@ -106,35 +133,30 @@ def brute_topk(points, queries, k: int, chunk: int = 65536):
     return best_d, best_i
 
 
+def check(what, *answers, exact=False, rtol=RTOL, atol=ATOL):
+    """Hold an answer to a reference (``assert_topk_close``) or, with
+    ``exact``, to the oracle at float64 (``assert_exact_topk``); raises
+    ``AssertionError`` naming ``what``."""
+    from repro_torch.core.exact import assert_exact_topk, assert_topk_close
+
+    try:
+        if exact:
+            return assert_exact_topk(*answers, rtol=rtol, atol=atol)
+        return assert_topk_close(*answers, rtol=rtol, atol=atol)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+
+
 def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
-        sweep_queries=64, dfs_queries=16, reps=10) -> dict:
+        sweep_queries=64, dfs_queries=16, reps=10, sweep_n=None,
+        fresh=FRESH, deletes=DELETES) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
-    size); returns the kernels record."""
+    size; ``sweep_n`` cuts slice 1's depth alone); returns the kernels
+    record."""
     import torch
 
-    from repro_torch.core.api import P2HIndex
-    from repro_torch.core.balltree import append_ones, normalize_query
-    from repro_torch.core.exact import (
-        assert_exact_topk,
-        assert_topk_close,
-        dists64,
-        exact_search,
-    )
-    from repro_torch.data.pipeline import make_p2h_dataset
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.p2h_scan import p2h_sweep
-    from repro_torch.kernels.ref import p2h_sweep_ref
+    from repro_torch.kernels import _build
     from repro_torch.launch import platform
-
-    k, bq = K, BQ
-
-    def check(what, *answers, exact=False):
-        try:
-            if exact:
-                return assert_exact_topk(*answers, rtol=RTOL, atol=ATOL)
-            return assert_topk_close(*answers, rtol=RTOL, atol=ATOL)
-        except AssertionError as e:
-            raise AssertionError(f"{what}: {e}") from None
 
     # 1. platform
     device = platform.resolve_device(device)
@@ -142,16 +164,41 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
     card = nvidia_smi() if device.type == "cuda" else "no card"
     log("platform", card=repr(card), device=report["name"],
         count=report["count"], allow_tf32=report["allow_tf32"],
-        matmul_precision=report["matmul_precision"])
+        matmul_precision=report["matmul_precision"],
+        torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build the kernel
+    # 2. build every kernel, one nvcc per source, all at once
     if device.type == "cuda":
         t0 = time.perf_counter()
-        ptxas = _build.build(force=True)
+        reports = _build.build(force=True)
         log("build", seconds=f"{time.perf_counter() - t0:.1f}",
-            target="sm_90a", library=_build.library_path().name)
-        for line in ptxas.splitlines():
-            print(f"[build] p2h_sweep: {line.strip()}")
+            target="sm_90a", libraries=",".join(
+                _build.library_path(name).name for name in _build.SOURCES))
+        for name, ptxas in reports.items():
+            for line in ptxas.splitlines():
+                print(f"[build] {name}: {line.strip()}")
+    k1 = run_sweep(device, card, n=sweep_n or n, d=d, queries=queries,
+                   n0=n0, sweep_queries=sweep_queries,
+                   dfs_queries=dfs_queries, reps=reps)
+    k2 = run_stacked(device, card, n=n, d=d, queries=queries, n0=n0,
+                     reps=reps, fresh=fresh, deletes=deletes)
+    return {"kernels": [k1, k2]}
+
+
+def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
+              dfs_queries, reps) -> dict:
+    """Slice 1, phases 3-6; returns K1's record."""
+    import torch
+
+    from repro_torch.core.api import P2HIndex
+    from repro_torch.core.balltree import append_ones, normalize_query
+    from repro_torch.core.exact import dists64, exact_search
+    from repro_torch.data.pipeline import make_p2h_dataset
+    from repro_torch.kernels import ops, p2h_scan
+    from repro_torch.kernels.ref import p2h_sweep_ref
+
+    k, bq = K, BQ
+    p2h_sweep = p2h_scan.p2h_sweep
 
     # 3. data and tree (host numpy), then onto the device
     t0 = time.perf_counter()
@@ -270,7 +317,7 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, bytes=int(nbytes), flops=int(flops),
         scanned_pairs=pairs, scanned_tiles=scanned, reps=reps)
-    return {"kernels": [{
+    return {
         "name": "p2h_sweep",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/p2h_sweep.cu",
@@ -282,7 +329,277 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }]}
+    }
+
+
+def timed_call(fn, device):
+    """``(fn(), ms)`` of one call (CUDA events on the card)."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def stacked_bound(rec: dict, live, d: int) -> tuple[float, float, int]:
+    """The least time for one stacked launch on these inputs: the larger
+    of (each input read once and each output written once) over the memory
+    rate, and 2*bq*d*n0 operations for each (segment, block, tile) the
+    launch scanned, at the true width ``d``, over the card's peak for the
+    points' type.  Bytes read: the tiles some block scanned, at their own
+    width plus their 4 tables; the node bounds only where the launch needs
+    them -- ``leaf_lb`` at every visited (segment, query, tile), to decide
+    the skip, and ``leaf_ip`` at the queries of scanned pairs; every other
+    operand whole.  Returns (bytes ms, operations ms, scanned pairs); the
+    bound is the larger time."""
+    import torch
+
+    pts = rec["pts_tiles"]
+    N, L, n0, _ = pts.shape
+    nqb, n_visit = rec["visit"].shape[1:]
+    B = rec["queries"].shape[0]
+    bq, k = B // nqb, rec["k"]
+    pairs = int(live.sum())
+    tiles = {(s, int(t)) for s in range(N)
+             for t in torch.unique(rec["visit"][s].long()[live[s]]).tolist()}
+    nbytes = len(tiles) * n0 * (d * pts.element_size() + 16)
+    nbytes += (N * B * n_visit + pairs * bq) * 4  # leaf_lb, leaf_ip
+    nbytes += sum(t.nbytes for name, t in rec.items()
+                  if isinstance(t, torch.Tensor) and name not in (
+                      "pts_tiles", "ids_tiles", "rx_tiles", "xc_tiles",
+                      "xs_tiles", "leaf_ip", "leaf_lb"))
+    nbytes += N * B * k * 8 + N * nqb * 4  # outputs
+    ops = 2.0 * bq * d * n0 * pairs
+    dtype = rec.get("probe_dtype", "f32")
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return bytes_ms, ops / PEAK_OPS[dtype] * 1e3, pairs
+
+
+def run_stacked(device, card, *, n, d, queries, n0, reps,
+                rounds=ROUNDS, fresh=FRESH, deletes=DELETES,
+                seq_queries=SEQ_QUERIES) -> dict:
+    """Slice 2, phase 7: the mutable index's stacked read path; returns
+    K2's record."""
+    import torch
+
+    from repro_torch.core import search
+    from repro_torch.core.balltree import normalize_query
+    from repro_torch.core.exact import exact_search
+    from repro_torch.data.pipeline import make_p2h_dataset
+    from repro_torch.kernels import p2h_scan, ref
+    from repro_torch.kernels import stacked_sweep as tss
+    from repro_torch.stream import CompactionPolicy, MutableP2HIndex
+
+    k = K
+    x, q = make_p2h_dataset(n, d, kind="planted", n_queries=queries,
+                            seed=SEED)
+    chunk = n // rounds
+    rng = np.random.default_rng(SEED + 1)
+    t0 = time.perf_counter()
+    m = MutableP2HIndex.from_data(
+        x[:chunk], n0=n0, device=device,
+        policy=CompactionPolicy(delta_capacity=chunk, tombstone_frac=0.95,
+                                max_segments=32))
+    for r in range(1, rounds):  # each full delta seals into a segment
+        m.insert_batch(x[r * chunk:(r + 1) * chunk])
+        m.compact()
+    sync(device)
+    build_s = time.perf_counter() - t0
+    near = x[rng.choice(n, fresh)] + rng.normal(
+        scale=0.05, size=(fresh, d)).astype(np.float32)
+    m.insert_batch(near)  # stays in the delta
+    dead = rng.choice(rounds * chunk, deletes, replace=False)
+    t0 = time.perf_counter()
+    for g in dead:
+        if not m.delete(int(g)):
+            raise AssertionError(f"gid {g} was not live")
+    sync(device)
+    delete_s = time.perf_counter() - t0
+    snap = m.snapshot()
+    if len(snap.segments) != rounds or snap.delta_live != fresh:
+        raise AssertionError(f"{len(snap.segments)} segments and "
+                             f"{snap.delta_live} delta rows, expected "
+                             f"{rounds} and {fresh}")
+    t0 = time.perf_counter()
+    stk = snap.stacked_leaves()
+    sync(device)
+    stack_s = time.perf_counter() - t0
+    planes = sum(getattr(stk, f.name).nbytes
+                 for f in dataclasses.fields(stk)
+                 if isinstance(getattr(stk, f.name), torch.Tensor))
+    log("stacked-data", n=n, segments=len(snap.segments),
+        delta_rows=snap.delta_live, deleted=deletes,
+        live=snap.live_count, tiles=stk.num_tiles,
+        build_seconds=f"{build_s:.1f}",
+        segment_build_seconds=",".join(
+            f"{c['wall_s']:.1f}" for c in m.compaction_log),
+        delete_seconds=f"{delete_s:.2f}", stack_seconds=f"{stack_s:.2f}",
+        stacked_plane_bytes=planes)
+
+    # the oracle over the live set; answers carry global ids, so the
+    # points are laid out by gid for the float64 check
+    X, G = snap.live_points()
+    pts = torch.from_numpy(X).to(device)
+    qn = torch.from_numpy(normalize_query(q)).to(device)
+    od, oi1 = exact_search(pts, qn, k + 1)
+    gid_t = torch.from_numpy(G.astype(np.int64)).to(device)
+    ref_i = gid_t[oi1.long()]
+    by_gid = torch.zeros((int(G.max()) + 1, X.shape[1]),
+                         dtype=torch.float32, device=device)
+    by_gid[gid_t] = pts
+    od_k, oi_k = od[:, :k].cpu(), ref_i[:, :k].cpu()
+    nxt = od[:, k].cpu().numpy()
+    dead_set = set(dead.tolist())
+
+    modes = [("f32", {}), ("single", dict(probe_tiles=0)),
+             ("bf16", dict(probe_dtype="bf16")),
+             ("int8", dict(probe_dtype="int8"))]
+    real = tss.stacked_sweep
+    answers, records, launches = {}, {}, {}
+    for name, kw in modes:
+        recs = records[name] = []
+
+        def recording(*args, _recs=recs, **kws):  # keeps each launch's
+            _recs.append(kws)                      # operands for the replay
+            return real(*args, **kws)
+
+        tss.stacked_sweep = recording
+        tss.LAUNCHES = p2h_scan.p2h_sweep.launches = 0
+        try:
+            sync(device)
+            t0 = time.perf_counter()
+            bd, bi, st = m.query(q, k, method="stacked", return_stats=True,
+                                 **kw)
+            host_s = time.perf_counter() - t0
+        finally:
+            tss.stacked_sweep = real
+        launches[name] = tss.LAUNCHES
+        want = 1 if name == "single" else 2
+        if launches[name] != want or p2h_scan.p2h_sweep.launches:
+            raise AssertionError(
+                f"{name}: {launches[name]} stacked launches (want {want}) "
+                f"and {p2h_scan.p2h_sweep.launches} sweep launches")
+        if not (np.isfinite(bd).all() and bd.shape == (queries, k)):
+            raise AssertionError(f"{name}: non-finite or misshapen answer")
+        if dead_set & set(bi.ravel().tolist()):
+            raise AssertionError(f"{name}: a deleted gid was returned")
+        err = check(f"stacked {name} vs oracle", bd, bi, od_k, oi_k, nxt)
+        err64 = check(f"stacked {name} vs oracle, float64", bd, bi, ref_i,
+                      by_gid, qn, exact=True)
+        answers[name] = (bd, bi)
+        log("stacked-query", mode=name, queries=queries, k=k,
+            equals_oracle=True, max_abs_err=err, f32_vs_f64_err=err64,
+            launches=launches[name], host_seconds=f"{host_s:.3f}",
+            leaves_scanned=st["leaves_scanned"],
+            tiles_skipped=st["tiles_skipped"], verified=st["verified"])
+    fd, fi = answers["f32"]
+    for name in ("single", "bf16", "int8"):
+        bd, bi = answers[name]
+        if not np.array_equal(bd, fd):
+            raise AssertionError(f"{name} distances differ from f32's")
+        check(f"{name} ids vs f32", bd, bi, fd, fi, rtol=0.0, atol=0.0)
+
+    # the sequential walk: one K1 launch per segment, capped by the
+    # running k-th
+    p2h_scan.p2h_sweep.launches = 0
+    t0 = time.perf_counter()
+    sd, si, sst = m.query(q[:seq_queries], k, method="pallas",
+                          stacked=False, return_stats=True)
+    seq_s = time.perf_counter() - t0
+    err = check("sequential walk vs stacked", sd, si, fd[:seq_queries],
+                fi[:seq_queries], nxt[:seq_queries])
+    log("stacked-sequential", queries=seq_queries, equals_stacked=True,
+        max_abs_err=err, sweep_launches=p2h_scan.p2h_sweep.launches,
+        host_seconds=f"{seq_s:.3f}", leaves_scanned=sst["leaves_scanned"],
+        tiles_skipped=sst["tiles_skipped"])
+
+    # every K2 launch of those runs against its plain version, timed
+    max_err, totals = 0.0, {}
+    for name, recs in records.items():
+        for i, rec in enumerate(recs):
+            pass_name = (("A", "B")[i] if len(recs) == 2 else "AB")
+            (kd, ki, ks), _ = timed_call(lambda: real(**rec), device)
+            order = torch.argsort(kd, dim=2, stable=True)
+            kd, ki = torch.gather(kd, 2, order), torch.gather(ki, 2, order)
+            (rd, ri, rs, live), plain_ms = timed_call(
+                lambda: ref.stacked_sweep_ref(**rec, return_live=True),
+                device)
+            if not torch.equal(ks, rs):
+                raise AssertionError(f"{name} pass {pass_name}: skip counts "
+                                     f"differ")
+            if not torch.equal(kd, rd):
+                raise AssertionError(
+                    f"{name} pass {pass_name}: distances differ from the "
+                    f"plain version's by up to "
+                    f"{float((kd - rd).abs().nan_to_num().max())}")
+            # ids: equal apart from exact ties, the k-th place included
+            # (of two points at the k-th distance, the kernel's unsorted
+            # top-k and the plain version's sorted one may keep either)
+            rd2 = rd.reshape(-1, k).cpu().numpy()
+            max_err = max(max_err, check(
+                f"{name} pass {pass_name} ids vs plain",
+                  kd.reshape(-1, k).cpu().numpy(),
+                  ki.reshape(-1, k).cpu().numpy(), rd2,
+                  ri.reshape(-1, k).cpu().numpy(), rd2[:, -1],
+                  rtol=0.0, atol=0.0))
+            kernel_ms = timed_ms(lambda: real(**rec), reps, device)
+            bytes_ms, ops_ms, pairs = stacked_bound(rec, live, d + 1)
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            if pairs != int(live.numel() - ks.sum()):
+                raise AssertionError("the kernel's and the plain version's "
+                                     "scanned tiles differ")
+            log("stacked-kernel", mode=name, pass_=pass_name,
+                matches_plain=True, skips=int(ks.sum()), scanned=pairs,
+                kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+                bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                dtype=rec.get("probe_dtype", "f32"))
+            if name == "f32":  # the kernels line: both launches of a batch
+                for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
+                               ("bound_ms", bound_ms), ("bytes_ms", bytes_ms),
+                               ("ops_ms", ops_ms)):
+                    totals[key] = totals.get(key, 0.0) + v
+    brute_topk(pts, qn, k)  # warm-up
+    library_ms = timed_ms(lambda: brute_topk(pts, qn, k), reps, device)
+    # the rest of a batch, beside the kernel: the delta scan, phase 1
+    # (bounds and visit orders of every segment) and the final merge
+    dd, di, _ = snap.delta_candidates(qn, k)
+    delta_ms = timed_ms(lambda: snap.delta_candidates(qn, k), reps, device)
+    phase1_ms = timed_ms(lambda: tss.prepare_stacked_operands(
+        stk, qn, bq=BQ, lambda_cap=dd[:, k - 1], lane_pad=True), reps,
+        device)
+    planes = real(**records["f32"][-1])[:2]
+    merge_ms = timed_ms(lambda: search.merge_topk_planes(
+        *planes, k, extra_d=dd, extra_i=di), reps, device)
+    log("stacked-timing", card=repr(card), kernel_ms=f"{totals['ms']:.4f}",
+        plain_ms=f"{totals['plain_ms']:.1f}",
+        bound_ms=f"{totals['bound_ms']:.4f}",
+        library_ms=f"{library_ms:.4f}", delta_ms=f"{delta_ms:.4f}",
+        phase1_ms=f"{phase1_ms:.4f}", merge_ms=f"{merge_ms:.4f}",
+        live_points=len(X), reps=reps)
+    return {
+        "name": "stacked_sweep",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stacked_sweep.cu",
+        "replaces": "src/repro/kernels/stacked_sweep.py:622",
+        "launches": launches["f32"],
+        "max_abs_err": max_err,
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": ("bytes" if totals["bytes_ms"] >= totals["ops_ms"]
+                     else "operations"),
+        "library_ms": library_ms,
+    }
 
 
 def main() -> int:

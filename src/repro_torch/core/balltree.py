@@ -114,6 +114,15 @@ class FlatTree:
         pad = -self.d % 4
         return F.pad(self.points, (0, pad)) if pad else self.points
 
+    def with_point_ids(self, point_ids) -> "FlatTree":
+        """The same tree with another ``point_ids`` plane (tombstones): the
+        geometry tensors are shared, and so is the padded points plane
+        when it was made already."""
+        out = dataclasses.replace(self, point_ids=point_ids)
+        if "points_padded" in self.__dict__:
+            out.__dict__["points_padded"] = self.__dict__["points_padded"]
+        return out
+
     def to(self, device) -> "FlatTree":
         return dataclasses.replace(
             self, **{name: getattr(self, name).to(device)

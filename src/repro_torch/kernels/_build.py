@@ -1,13 +1,13 @@
-"""Build the port's CUDA kernel with ``nvcc`` at first use, load with ctypes.
+"""Build the port's CUDA kernels with ``nvcc`` at first use, load with ctypes.
 
-``csrc/p2h_sweep.cu`` has a plain C interface and is compiled into
-``build/kernels/libp2h_sweep-<hash>.so`` under the checkout (a directory
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled into its own
+``build/kernels/lib<name>-<hash>.so`` under the checkout (a directory
 ``.gitignore`` lists).  The hash covers the source and the compiler flags,
 so an edited kernel or a changed flag is rebuilt and a stale library is
-never loaded.
+never loaded.  :func:`build` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: a host without ``nvcc`` imports this module and
-only fails if the kernel is asked for.
+only fails if a kernel is asked for.
 """
 from __future__ import annotations
 
@@ -18,14 +18,16 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "load", "library_path"]
+__all__ = ["build", "load", "library_path", "SOURCES"]
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "p2h_sweep.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: the kernels, by name: ``csrc/<name>.cu``
+SOURCES = tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -37,37 +39,55 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes())
+def _source(name: str) -> Path:
+    if name not in SOURCES:
+        raise ValueError(f"no kernel source csrc/{name}.cu (have {SOURCES})")
+    return _CSRC / f"{name}.cu"
+
+
+def library_path(name: str = "p2h_sweep") -> Path:
+    digest = hashlib.sha256(_source(name).read_bytes())
     digest.update("\0".join(_FLAGS).encode())
-    return _BUILD_DIR / f"libp2h_sweep-{digest.hexdigest()[:12]}.so"
+    return _BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(*, force: bool = False) -> str:
-    """Compile the library if it is missing (always with ``force``); returns
-    ptxas' report (registers, shared memory, spills), empty if nothing was
-    built.  Raises ``RuntimeError`` with the compiler's output on failure.
+def build(names=None, *, force: bool = False) -> dict[str, str]:
+    """Compile the libraries of ``names`` (default: every kernel) that are
+    missing (all of them with ``force``), one ``nvcc`` per source, started
+    together.  Returns ptxas' report (registers, shared memory, spills) per
+    library built.  Raises ``RuntimeError`` with the compiler's output if
+    any build fails.
     """
-    out = library_path()
-    if out.exists() and not force:
-        return ""
+    names = SOURCES if names is None else tuple(names)
+    todo = [n for n in names if force or not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", str(tmp), str(_SRC)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    return "\n".join(line for line in proc.stdout.splitlines()
-                     if "ptxas" in line or "spill" in line)
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".so.tmp{os.getpid()}")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *_FLAGS, "-o", str(tmp), str(_source(name))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, library_path(name))  # atomic: loaders see all/none
+        reports[name] = "\n".join(line for line in out.splitlines()
+                                  if "ptxas" in line or "spill" in line)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return reports
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if missing."""
-    global _LIB
-    if _LIB is None:
-        build()
-        _LIB = ctypes.CDLL(str(library_path()))
-    return _LIB
+def load(name: str = "p2h_sweep") -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

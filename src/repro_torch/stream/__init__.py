@@ -1,0 +1,24 @@
+"""Mutable LSM-style P2HNNS index: streaming inserts/deletes over the
+BC-Tree with inline or background compaction and atomic snapshots.
+
+``DeltaBuffer`` (delta.py)
+    The memtable: inserts append to a fixed-capacity host buffer, queried
+    by an exact brute-force scan.
+``Segment`` / ``Snapshot`` / ``DeltaView`` (snapshot.py)
+    Sealed trees with global-id tables; deletes mask a point's
+    ``point_ids`` row to -1.  Queries fan out across delta + segments, by
+    a sequential walk that threads a running cap, or by one stacked launch
+    over every segment (``repro_torch.kernels.stacked_sweep``).
+``CompactionPolicy`` (compaction.py)
+    When to fold the delta and tombstone-heavy segments into fresh trees.
+``MutableP2HIndex`` (mutable.py)
+    The front-end: ``insert`` / ``delete`` / ``query`` / ``compact``,
+    ``save`` / ``load`` in the JAX package's checkpoint format.
+"""
+from repro_torch.stream.compaction import CompactionPlan, CompactionPolicy
+from repro_torch.stream.delta import DeltaBuffer
+from repro_torch.stream.mutable import MutableP2HIndex
+from repro_torch.stream.snapshot import DeltaView, Segment, Snapshot
+
+__all__ = ["MutableP2HIndex", "Snapshot", "Segment", "DeltaView",
+           "DeltaBuffer", "CompactionPolicy", "CompactionPlan"]

@@ -1,4 +1,4 @@
-"""The CUDA sweep kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Run on a machine with an NVIDIA H100 (builds the kernel with nvcc):
 
@@ -23,6 +23,8 @@ from repro_torch.core.balltree import (  # noqa: E402
 from repro_torch.core.exact import assert_exact_topk, exact_search  # noqa: E402
 from repro_torch.data.pipeline import make_p2h_dataset  # noqa: E402
 from repro_torch.kernels import ops, p2h_scan, ref  # noqa: E402
+from repro_torch.kernels import stacked_sweep as tss  # noqa: E402
+from repro_torch.stream import CompactionPolicy, MutableP2HIndex  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -143,3 +145,186 @@ def test_merge_topk_on_card_matches_host(cuda):
     hd, hi = search.merge_topk(d, i, 8)
     cd, ci = search.merge_topk(d.to(cuda), i.to(cuda), 8)
     assert torch.equal(cd.cpu(), hd) and torch.equal(ci.cpu(), hi)
+
+
+# ------------------------------------------------ the stacked kernel (K2)
+class _Seg:
+    def __init__(self, uid, tree, gids):
+        self.uid, self.tree, self.gids = uid, tree, np.asarray(gids, np.int32)
+
+
+def _stack(device, *, sizes=(300, 57, 1, 180, 90), dim=16, n0=32, seed=0,
+           dead=(4,)):
+    """A ragged stack on ``device``: a single-point segment, an
+    all-tombstone one, and a bucket-pad row (5 segments -> 6 rows)."""
+    rng = np.random.default_rng(seed)
+    segs, gid = [], 0
+    for u, n in enumerate(sizes):
+        pts = append_ones(rng.normal(size=(n, dim)).astype(np.float32))
+        tree = build_tree(pts, n0=n0, append_one=False)
+        if u in dead:
+            tree = tree.with_point_ids(torch.full_like(tree.point_ids, -1))
+        segs.append(_Seg(u, tree.to(device), np.arange(gid, gid + n)))
+        gid += n
+    return tss.StackedLeaves.from_segments(segs)
+
+
+def _stacked_operands(stk, nq, bq, probe_dtype="f32", seed=1):
+    arrays, _ = tss._bucketed_arrays(stk, use_kernel=True,
+                                     probe_dtype=probe_dtype)
+    qpts, qscale = arrays.pop("qpts", None), arrays.pop("qscale", None)
+    grid = tss.StackedLeaves(**arrays, uids=(), n0=stk.n0, d=stk.d)
+    q = normalize_query(np.random.default_rng(seed).normal(
+        size=(nq, stk.d)).astype(np.float32))
+    ops_, _ = tss.prepare_stacked_operands(
+        grid, torch.from_numpy(q).to(stk.device), bq=bq, lane_pad=True)
+    kw = {}
+    if probe_dtype != "f32":
+        ops_, kw = tss._quant_probe_operands(
+            probe_dtype, ops_, qpts, qscale, grid.leaf_radii,
+            grid.leaf_cnorm, stk.d)
+    return ops_, kw
+
+
+def _stacked_vs_plain(ops_, kw, k, bq):
+    before = tss.LAUNCHES
+    kd, ki, ks = tss.stacked_sweep(**ops_, k=k, bq=bq, **kw)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES == before + 1
+    order = torch.argsort(kd, dim=2, stable=True)
+    kd, ki = torch.gather(kd, 2, order), torch.gather(ki, 2, order)
+    rd, ri, rs = ref.stacked_sweep_ref(**ops_, k=k, bq=bq, **kw)
+    assert_topk_parity(kd.reshape(-1, k).cpu().numpy(),
+                       ki.reshape(-1, k).cpu().numpy(),
+                       rd.reshape(-1, k).cpu().numpy(),
+                       ri.reshape(-1, k).cpu().numpy())
+    assert torch.equal(ks, rs)
+    return kd, rd, ks
+
+
+@pytest.mark.parametrize("probe_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("start", ["cold", "seeded"])
+@pytest.mark.parametrize("k,bq,nq", [(5, 8, 21), (40, 4, 8), (3, 16, 32),
+                                     (7, 1, 3)])
+def test_stacked_kernel_matches_plain(cuda, probe_dtype, start, k, bq, nq):
+    stk = _stack(cuda)
+    ops_, kw = _stacked_operands(stk, nq, bq, probe_dtype)
+    Bp = ops_["queries"].shape[0]
+    if start == "seeded":  # pass A's state of a cold probe of 2 tiles
+        sd, si, _ = ref.stacked_sweep_ref(
+            **dict(ops_, visit=ops_["visit"][:, :, :2].contiguous()), k=k,
+            bq=bq, **kw)
+        kw = dict(kw, seed_d=sd, seed_i=si,
+                  global_seed=torch.full((Bp, k), 2.0, device=cuda))
+    kd, rd, ks = _stacked_vs_plain(ops_, kw, k, bq)
+    if bq > 1:  # the same sums in the same order; cuBLAS sums a batch of
+        #         single-row products (bq=1) in another order
+        assert torch.equal(kd, rd)
+    n_visit = ops_["visit"].shape[2]
+    assert (ks[4:] == n_visit).all()  # all-tombstone and bucket-pad rows
+
+
+@pytest.mark.parametrize("use_ball,use_cone", [(False, False), (True, False),
+                                               (False, True)])
+def test_stacked_kernel_bound_toggles(cuda, use_ball, use_cone):
+    stk = _stack(cuda, seed=2)
+    ops_, kw = _stacked_operands(stk, 16, 8)
+    _stacked_vs_plain(ops_, dict(kw, use_ball=use_ball, use_cone=use_cone),
+                      10, 8)
+
+
+def test_stacked_kernel_raises_and_never_falls_back(cuda, monkeypatch):
+    stk = _stack(cuda, seed=3)
+    ops_, _ = _stacked_operands(stk, 16, 8)
+
+    def plain(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "stacked_sweep_ref", plain)
+    before = tss.LAUNCHES
+    broken = [dict(ops_, rx_tiles=ops_["rx_tiles"].double()),
+              dict(ops_, visit=ops_["visit"].cpu()),
+              dict(ops_, leaf_lb=ops_["leaf_lb"][:, :, :-1].contiguous()),
+              dict(ops_, pts_tiles=ops_["pts_tiles"].to(torch.bfloat16))]
+    for bad in broken:
+        with pytest.raises((ValueError, TypeError)):
+            tss.stacked_sweep(**bad, k=5)
+    with pytest.raises(ValueError, match="bq"):
+        tss.stacked_sweep(**ops_, k=5, bq=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        tss.stacked_sweep(**ops_, k=100_000)
+    assert tss.LAUNCHES == before
+
+
+def _mutable(device, seed=0):
+    rng = np.random.default_rng(seed)
+    data = rng.normal(size=(1200, 16)).astype(np.float32)
+    m = MutableP2HIndex.from_data(
+        data[:200], n0=32, device=device,
+        policy=CompactionPolicy(delta_capacity=200, tombstone_frac=0.95,
+                                max_segments=32))
+    for c in range(1, 6):
+        m.insert_batch(data[c * 200:(c + 1) * 200])
+    m.insert_batch(rng.normal(size=(17, 16)).astype(np.float32))
+    for g in range(0, 1200, 7):
+        m.delete(g)
+    return m
+
+
+@pytest.mark.parametrize("kw", [dict(method="stacked"),
+                                dict(method="stacked", probe_dtype="bf16"),
+                                dict(method="stacked", probe_dtype="int8"),
+                                dict(method="stacked", probe_tiles=0),
+                                dict(method="pallas", stacked=False)])
+def test_mutable_index_on_card_matches_host(cuda, kw):
+    on_card, on_host = _mutable(cuda), _mutable("cpu")
+    q = np.random.default_rng(5).normal(size=(19, 17)).astype(np.float32)
+    before = tss.LAUNCHES
+    cd, ci, cs = on_card.query(q, 10, return_stats=True, **kw)
+    hd, hi, hs = on_host.query(q, 10, return_stats=True, **kw)
+    assert_topk_parity(cd, ci, hd, hi)
+    assert cs == hs
+    launched = tss.LAUNCHES - before
+    assert launched == (0 if kw.get("stacked") is False
+                        else 1 if kw.get("probe_tiles") == 0 else 2)
+    X, G = on_card.snapshot().live_points()
+    qn = normalize_query(q)
+    assert_exact_topk(cd, ci,
+                      G[oracle(X, qn, 11)[1]],
+                      torch.from_numpy(_by_gid(X, G)).to(cuda),
+                      torch.from_numpy(qn).to(cuda))
+
+
+def _by_gid(X, G):
+    """Rows of ``X`` placed at their gids (a table ``assert_exact_topk``
+    can index by the answers' global ids)."""
+    out = np.zeros((int(G.max()) + 1, X.shape[1]), np.float32)
+    out[G] = X
+    return out
+
+
+def test_tombstone_reuploads_only_the_ids_plane(cuda):
+    m = _mutable(cuda, seed=1)
+    q = np.random.default_rng(6).normal(size=(8, 17)).astype(np.float32)
+    for dt in ("f32", "bf16", "int8"):
+        m.query(q, 5, method="stacked", probe_dtype=dt)
+    stk = m.snapshot().stacked_leaves()
+    geometry = {name: getattr(stk, name).data_ptr() for name in (
+        "pts", "rx", "xc", "xs", "leaf_centers", "leaf_radii", "leaf_cnorm")}
+    derived = {key: id(v) for key, v in stk._derived.items()
+               if key.startswith("geom:") or key == "pts_lane"}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    victim = int(m.snapshot().segments[3].gids[5])
+    assert m.delete(victim)
+    new = m.snapshot().stacked_leaves()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(cuda) - before
+    assert {name: getattr(new, name).data_ptr()
+            for name in geometry} == geometry
+    assert {key: id(new._derived[key]) for key in derived} == derived
+    assert new.ids.data_ptr() != stk.ids.data_ptr()
+    # the new ids and valid planes (and the ids plane of the tombstoned
+    # segment's tree): nothing the size of the points
+    assert grown < 4 * stk.ids.nbytes + 4 * stk.valid.nbytes
+    assert victim not in set(new.ids.flatten().tolist())
