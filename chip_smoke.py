@@ -19,10 +19,13 @@ Phases, one line each:
 
   1. platform   the card (nvidia-smi name and power limit), precision
   2. build      one nvcc per kernel source, all started together, for
-                sm_90a, with ptxas' registers/shared memory/spills
+                sm_90a; ptxas' registers and spills per instance, failing
+                if an instance the main paths launch (bq = 64) spills
   3. data       host build of the data and the tree; index size
-  4. kernel     K1 against its plain PyTorch version on the same operands:
-                distances, ids (apart from ties), skip counts
+  4. kernel     K1 against its plain PyTorch version on the same operands
+                at the card's schedule (bq = 64 query blocks, `split` CTAs
+                per block, the plain version at the same split): distances,
+                ids (apart from ties), skip counts
   5. query      ``P2HIndex.query(method="kernel")`` on every query against
                 the brute-force oracle, with the launch count of that run;
                 ``sweep`` and ``dfs`` on a few queries; every exact route's
@@ -30,19 +33,25 @@ Phases, one line each:
                 distances (``assert_exact_topk``), and the f32 oracle's own
                 distance from a float64 oracle measured;
                 ``beam`` with its recall
-  6. timing     CUDA-event times of K1, of phase 1, of the plain version
-                and of a brute-force scan, beside the kernel's bound
+  6. timing     CUDA-event times of K1 (and its device time alone, from a
+                profiler trace), of K1 at the old schedule (bq = 8,
+                split = 1), of a warm batch, of phase 1, of the plain
+                version and of a brute-force scan, beside the kernel's
+                bound (valid rows)
   7. stacked    the mutable index: build time, segments, tiles, the
                 stacked planes' bytes; per probe mode (f32 two-pass,
-                one pass, bf16 probe, int8 probe) the whole ``query`` held
-                to the oracle over the live set, its launches counted
-                (K2 twice for a two-pass query, once for one pass, K1
-                never); the bf16/int8 answers equal the f32 ones bit for
-                bit; the sequential walk (K1 with caps) on a few queries
-                equals the stacked answer; every K2 launch of those runs
-                replayed against its plain version: distances bit for bit,
-                skip counts equal; CUDA-event times, bounds, the plain
-                version's time and a brute-force scan of the live set
+                one pass, bf16 probe, int8 probe) the whole ``query`` at
+                the card's defaults held to the oracle over the live set,
+                its launches counted (K2 twice for a two-pass query, once
+                for one pass, K1 never); the bf16/int8/one-pass answers and
+                the f32 answer at bq = 8, split = 1 equal the f32 one bit
+                for bit; the sequential walk (K1 with caps) on a few
+                queries equals the stacked answer; every K2 launch of those
+                runs replayed against its plain version at its (bq, split):
+                distances bit for bit, skip counts equal; CUDA-event and
+                device times, bounds, the plain version's time, the f32
+                batch at bq = 8, split = 1, a warm batch and a brute-force
+                scan of the live set
   8. kernels    one JSON line: per kernel its launches, error and times
 
 then the card's nvidia-smi line and, last, the result line
@@ -55,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,7 +72,7 @@ from pathlib import Path
 
 import numpy as np
 
-K, BQ, SEED, BEAM_FRAC = 10, 8, 0, 0.05
+K, SEED, BEAM_FRAC = 10, 0, 0.05
 RTOL, ATOL = 1e-5, 1e-6
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth; dense peaks by input type
 # (f32 outside the tensor cores), at the full 700 W power limit
@@ -73,6 +83,10 @@ PEAK_OPS = {"f32": PEAK_F32_FLOPS, "bf16": 989e12, "int8": 1979e12}
 # fresh points left in the delta, deleted gids, sequential-walk queries
 ROUNDS, FRESH, DELETES, SEQ_QUERIES = 8, 4096, 10_000, 64
 SRC = Path(__file__).resolve().parent / "src"
+# the kernel instances the main paths launch (bq = 64; K2 in its three
+# probe modes); none may spill
+MAIN_INSTANCES = ("p2h_sweep_kernel<64>", "stacked_sweep_kernel<64,0>",
+                  "stacked_sweep_kernel<64,1>", "stacked_sweep_kernel<64,2>")
 
 
 def log(phase: str, **fields) -> None:
@@ -86,6 +100,30 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_instances(report: str) -> dict:
+    """``{"kernel<bq,mode>": (registers, spill store bytes, spill load
+    bytes)}`` from ``ptxas -v``'s report of one library."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"\S*?(p2h_sweep_kernel|stacked_sweep_kernel)I(\w*?)EEv",
+                      line)
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2) + "E"))
+            name = f"{m.group(1)}<{args}>"
+            out.setdefault(name, [0, 0, 0])
+            continue
+        if name is None:
+            continue
+        if "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            out[name][1:] = [int(st), int(ld)]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def timed_ms(fn, reps: int, device) -> float:
@@ -174,9 +212,16 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         log("build", seconds=f"{time.perf_counter() - t0:.1f}",
             target="sm_90a", libraries=",".join(
                 _build.library_path(name).name for name in _build.SOURCES))
-        for name, ptxas in reports.items():
-            for line in ptxas.splitlines():
-                print(f"[build] {name}: {line.strip()}")
+        instances = {}
+        for ptxas in reports.values():
+            instances.update(ptxas_instances(ptxas))
+        for inst, (regs, st, ld) in sorted(instances.items()):
+            log("build", instance=inst, registers=regs, spill_stores=st,
+                spill_loads=ld)
+        for inst in MAIN_INSTANCES:  # the main path's instances
+            if inst not in instances or any(instances[inst][1:]):
+                raise AssertionError(f"{inst}: missing from ptxas' report or "
+                                     f"spills ({instances.get(inst)})")
     k1 = run_sweep(device, card, n=sweep_n or n, d=d, queries=queries,
                    n0=n0, sweep_queries=sweep_queries,
                    dfs_queries=dfs_queries, reps=reps)
@@ -197,7 +242,7 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
     from repro_torch.kernels import ops, p2h_scan
     from repro_torch.kernels.ref import p2h_sweep_ref
 
-    k, bq = K, BQ
+    k = K
     p2h_sweep = p2h_scan.p2h_sweep
 
     # 3. data and tree (host numpy), then onto the device
@@ -230,21 +275,35 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
     log("oracle", f32_rows_off_float64=int(
         (gap > ATOL + RTOL * ref64).any(1).sum()), max_gap=float(gap.max()))
 
-    # 4. the kernel against its plain version, same operands
+    # 4. the kernel against its plain version, same operands, at the card's
+    #    schedule: bq = the smallest block of the batch up to 64, split =
+    #    the CTAs per block that fill the SMs in one wave
+    bq = p2h_scan.resolve_bq(None, queries, device)
     opnds, _ = ops.prepare_operands(tree, qn, bq=bq)
-    kd, ki, ks = p2h_sweep(**opnds, k=k)
-    order = torch.argsort(kd, dim=1, stable=True)
-    kd, ki = torch.gather(kd, 1, order), torch.gather(ki, 1, order)
-    rd, ri, rs, live = p2h_sweep_ref(**opnds, k=k, return_live=True)
+    nqb, n_visit = opnds["visit"].shape
+    split = p2h_scan.default_split(opnds, k=k, bq=bq)
+    kd, ki, ks = p2h_sweep(**opnds, k=k, bq=bq, split=split)
+    rd, ri, rs, live = p2h_sweep_ref(**opnds, k=k, bq=bq, split=split,
+                                     return_live=True)
     sync(device)
     max_err = check("kernel vs plain", kd.cpu(), ki.cpu(), rd.cpu(),
                     ri.cpu(), nxt)
     if not torch.equal(ks, rs):
         raise AssertionError(f"skip counts differ: {int(ks.sum())} vs "
                              f"{int(rs.sum())}")
-    nqb, n_visit = opnds["visit"].shape
-    log("kernel", match=True, max_abs_err=max_err, blocks=nqb,
+    # clusters the card holds at once, by split, at these shapes: the
+    # default split is the largest whose nqb clusters all fit
+    clusters = "n/a"
+    if device.type == "cuda":
+        shapes = dict(bq=bq, n0=tree.n0, dp=opnds["queries"].shape[1], k=k)
+        clusters = ",".join(
+            f"{sp}:{p2h_scan.max_active_clusters(split=sp, **shapes)}"
+            for sp in p2h_scan.SUPPORTED_SPLIT)
+    log("kernel", match=True, max_abs_err=max_err,
+        distances_bit_equal=bool(torch.equal(kd, rd)), bq=bq, split=split,
+        ctas=nqb * split, clusters_by_split=clusters, blocks=nqb,
         visits=nqb * n_visit, skips=int(ks.sum()),
+        plain_skips=int(rs.sum()), skips_equal=True,
         live_pairs=int(live.sum()))
 
     # 5. the main path through the user's entry point, launches counted
@@ -284,39 +343,35 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
     log("query", method="beam", frac=BEAM_FRAC, recall=f"{recall:.4f}",
         host_seconds=f"{sec:.3f}")
 
-    # 6. timing at the main path's shapes
-    kernel_ms = timed_ms(lambda: p2h_sweep(**opnds, k=k), reps, device)
+    # 6. timing at the main path's shapes, and the same kernel at the old
+    #    schedule (bq = 8, one CTA per block) on the same queries
+    kernel_ms = timed_ms(lambda: p2h_sweep(**opnds, k=k, bq=bq, split=split),
+                         reps, device)
+    dev_ms = device_ms(lambda: p2h_sweep(**opnds, k=k, bq=bq, split=split),
+                       reps, device, "p2h_sweep_kernel")
+    batch_ms = timed_ms(lambda: index.query(q, k, method="kernel"), 3,
+                        device)
+    old, _ = ops.prepare_operands(tree, qn, bq=8)
+    p2h_sweep(**old, k=k, bq=8, split=1)  # warm-up
+    bq8_ms = timed_ms(lambda: p2h_sweep(**old, k=k, bq=8, split=1), reps,
+                      device)
     phase1_ms = timed_ms(lambda: ops.prepare_operands(tree, qn, bq=bq),
                          reps, device)
-    plain_ms = timed_ms(lambda: p2h_sweep_ref(**opnds, k=k), 1, device)
+    plain_ms = timed_ms(lambda: p2h_sweep_ref(**opnds, k=k, bq=bq,
+                                              split=split), 1, device)
     brute_topk(pts, qn, k)  # warm-up
     library_ms = timed_ms(lambda: brute_topk(pts, qn, k), reps, device)
-    # bound, at the unpadded width d: each input read once -- the tiles
-    # some block scanned (d f32 and 4 tables per point), all of the rest --
-    # and each output written once; operations: 2*bq*d*n0 for each
-    # (block, tile) pair the kernel scanned, from its own skip counts
-    d1, n0, L = tree.d, tree.n0, tree.num_leaves
-    pairs = nqb * n_visit - int(ks.sum())
-    if pairs != int(live.sum()):
-        raise AssertionError("the kernel's and the plain version's scanned "
-                             "pairs differ")
-    scanned = torch.unique(opnds["visit"].long()[live]).numel()
-    nbytes = scanned * n0 * (d1 + 4) * 4
-    nbytes += opnds["queries"].shape[0] * d1 * 4
-    nbytes += sum(t.nbytes for name, t in opnds.items() if name not in (
-        "pts_tiles", "ids_tiles", "rx_tiles", "xc_tiles", "xs_tiles",
-        "queries"))
-    nbytes += kd.nbytes + ki.nbytes + ks.nbytes
-    flops = 2.0 * bq * d1 * n0 * pairs
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, \
-        flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms, pairs, nbytes, flops = sweep_bound(
+        opnds, live, tree.d, ks, kd.nbytes + ki.nbytes + ks.nbytes)
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     log("timing", card=repr(card), kernel_ms=f"{kernel_ms:.4f}",
+        device_ms=dev_ms, batch_ms=f"{batch_ms:.3f}",
+        bq=bq, split=split, bq8_split1_ms=f"{bq8_ms:.4f}",
         phase1_ms=f"{phase1_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, bytes=int(nbytes), flops=int(flops),
-        scanned_pairs=pairs, scanned_tiles=scanned, reps=reps)
+        scanned_pairs=pairs, reps=reps)
     return {
         "name": "p2h_sweep",
         "route": "cuda",
@@ -330,6 +385,58 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def sweep_bound(opnds: dict, live, d: int, skips, out_bytes: int):
+    """The least time for one K1 launch on these inputs: the larger of
+    (each input read once, each output written once) over the memory rate
+    and 2*bq*d operations per valid (non-pad) row of each (block, tile)
+    pair the launch scanned, at the true width ``d``, over the f32 peak.
+    Bytes read: the valid rows of the tiles some block scanned, at width d
+    plus their 4 tables; every other operand whole.  Pad rows are neither
+    loaded nor scored by the kernel, so they are not counted.  Returns
+    (bytes ms, operations ms, scanned pairs, bytes, operations)."""
+    import torch
+
+    nqb, n_visit = opnds["visit"].shape
+    bq = opnds["queries"].shape[0] // nqb
+    pairs = int(live.sum())
+    if pairs != nqb * n_visit - int(skips.sum()):
+        raise AssertionError("the kernel's and the plain version's scanned "
+                             "pairs differ")
+    valid = (opnds["ids_tiles"] >= 0).sum(dim=1)  # (L,)
+    scanned = opnds["visit"].long()[live]
+    tiles = torch.unique(scanned)
+    nbytes = int(valid[tiles].sum()) * (d + 4) * 4
+    nbytes += opnds["queries"].shape[0] * d * 4
+    nbytes += sum(t.nbytes for name, t in opnds.items() if name not in (
+        "pts_tiles", "ids_tiles", "rx_tiles", "xc_tiles", "xs_tiles",
+        "queries"))
+    nbytes += out_bytes
+    flops = 2.0 * bq * d * int(valid[scanned].sum())
+    return (nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3,
+            pairs, nbytes, flops)
+
+
+def device_ms(fn, reps: int, device, kernel: str):
+    """Mean device time per call of the kernels whose name holds
+    ``kernel``, over ``reps`` calls of ``fn``, from a ``torch.profiler``
+    trace of the card: the kernel alone, without the wrapper's host work
+    and the small launches around it.  None on the host, or where the
+    trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / 1e3 / reps if us else None
 
 
 def timed_call(fn, device):
@@ -353,32 +460,38 @@ def timed_call(fn, device):
 def stacked_bound(rec: dict, live, d: int) -> tuple[float, float, int]:
     """The least time for one stacked launch on these inputs: the larger
     of (each input read once and each output written once) over the memory
-    rate, and 2*bq*d*n0 operations for each (segment, block, tile) the
-    launch scanned, at the true width ``d``, over the card's peak for the
-    points' type.  Bytes read: the tiles some block scanned, at their own
-    width plus their 4 tables; the node bounds only where the launch needs
-    them -- ``leaf_lb`` at every visited (segment, query, tile), to decide
-    the skip, and ``leaf_ip`` at the queries of scanned pairs; every other
-    operand whole.  Returns (bytes ms, operations ms, scanned pairs); the
-    bound is the larger time."""
+    rate, and 2*bq*d operations per valid (non-pad, live) row of each
+    (segment, block, tile) the launch scanned, at the true width ``d``,
+    over the card's peak for the points' type.  Bytes read: the valid rows
+    of the tiles some block scanned, at their own width plus their 4
+    tables; the node bounds only where the launch needs them -- ``leaf_lb``
+    at every visited (segment, query, tile), to decide the skip, and
+    ``leaf_ip`` at the queries of scanned pairs; every other operand whole.
+    Pad and tombstoned rows are never scored, so they are not counted.
+    Returns (bytes ms, operations ms, scanned pairs); the bound is the
+    larger time."""
     import torch
 
     pts = rec["pts_tiles"]
-    N, L, n0, _ = pts.shape
+    N = pts.shape[0]
     nqb, n_visit = rec["visit"].shape[1:]
     B = rec["queries"].shape[0]
     bq, k = B // nqb, rec["k"]
     pairs = int(live.sum())
-    tiles = {(s, int(t)) for s in range(N)
-             for t in torch.unique(rec["visit"][s].long()[live[s]]).tolist()}
-    nbytes = len(tiles) * n0 * (d * pts.element_size() + 16)
+    valid = (rec["ids_tiles"] >= 0).sum(dim=-1)  # (N, L)
+    rows = scanned = 0
+    for s in range(N):
+        tiles = rec["visit"][s].long()[live[s]]
+        rows += int(valid[s][torch.unique(tiles)].sum())
+        scanned += int(valid[s][tiles].sum())
+    nbytes = rows * (d * pts.element_size() + 16)
     nbytes += (N * B * n_visit + pairs * bq) * 4  # leaf_lb, leaf_ip
     nbytes += sum(t.nbytes for name, t in rec.items()
                   if isinstance(t, torch.Tensor) and name not in (
                       "pts_tiles", "ids_tiles", "rx_tiles", "xc_tiles",
                       "xs_tiles", "leaf_ip", "leaf_lb"))
     nbytes += N * B * k * 8 + N * nqb * 4  # outputs
-    ops = 2.0 * bq * d * n0 * pairs
+    ops = 2.0 * bq * d * scanned
     dtype = rec.get("probe_dtype", "f32")
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return bytes_ms, ops / PEAK_OPS[dtype] * 1e3, pairs
@@ -464,12 +577,15 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
              ("bf16", dict(probe_dtype="bf16")),
              ("int8", dict(probe_dtype="int8"))]
     real = tss.stacked_sweep
-    answers, records, launches = {}, {}, {}
-    for name, kw in modes:
-        recs = records[name] = []
 
-        def recording(*args, _recs=recs, **kws):  # keeps each launch's
-            _recs.append(kws)                      # operands for the replay
+    def recorded_query(**kw):
+        """``m.query(method="stacked")`` with each K2 launch's operands
+        kept for the replay; returns (answer, records, launches, host
+        seconds)."""
+        recs = []
+
+        def recording(*args, **kws):
+            recs.append(kws)
             return real(*args, **kws)
 
         tss.stacked_sweep = recording
@@ -477,17 +593,27 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
         try:
             sync(device)
             t0 = time.perf_counter()
-            bd, bi, st = m.query(q, k, method="stacked", return_stats=True,
-                                 **kw)
+            out = m.query(q, k, method="stacked", return_stats=True, **kw)
             host_s = time.perf_counter() - t0
         finally:
             tss.stacked_sweep = real
-        launches[name] = tss.LAUNCHES
+        if p2h_scan.p2h_sweep.launches:
+            raise AssertionError("the stacked route launched K1")
+        for rec in recs:  # the schedule each launch took
+            if rec["split"] is None:
+                rec["split"] = tss.default_split(
+                    rec, k=rec["k"], bq=rec["bq"],
+                    probe_dtype=rec.get("probe_dtype", "f32"))
+        return out, recs, tss.LAUNCHES, host_s
+
+    answers, records, launches = {}, {}, {}
+    for name, kw in modes:  # at the card's defaults: bq and split None
+        (bd, bi, st), records[name], launches[name], host_s = \
+            recorded_query(**kw)
         want = 1 if name == "single" else 2
-        if launches[name] != want or p2h_scan.p2h_sweep.launches:
+        if launches[name] != want:
             raise AssertionError(
-                f"{name}: {launches[name]} stacked launches (want {want}) "
-                f"and {p2h_scan.p2h_sweep.launches} sweep launches")
+                f"{name}: {launches[name]} stacked launches (want {want})")
         if not (np.isfinite(bd).all() and bd.shape == (queries, k)):
             raise AssertionError(f"{name}: non-finite or misshapen answer")
         if dead_set & set(bi.ravel().tolist()):
@@ -496,9 +622,11 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
         err64 = check(f"stacked {name} vs oracle, float64", bd, bi, ref_i,
                       by_gid, qn, exact=True)
         answers[name] = (bd, bi)
+        rec = records[name][-1]
         log("stacked-query", mode=name, queries=queries, k=k,
             equals_oracle=True, max_abs_err=err, f32_vs_f64_err=err64,
-            launches=launches[name], host_seconds=f"{host_s:.3f}",
+            launches=launches[name], bq=rec["bq"], split=rec["split"],
+            host_seconds=f"{host_s:.3f}",
             leaves_scanned=st["leaves_scanned"],
             tiles_skipped=st["tiles_skipped"], verified=st["verified"])
     fd, fi = answers["f32"]
@@ -507,6 +635,13 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
         if not np.array_equal(bd, fd):
             raise AssertionError(f"{name} distances differ from f32's")
         check(f"{name} ids vs f32", bd, bi, fd, fi, rtol=0.0, atol=0.0)
+    # the f32 two-pass batch at the old schedule: bq = 8, one CTA a block
+    (od8, oi8, _), old_recs, _, _ = recorded_query(bq=8, split=1)
+    if not np.array_equal(od8, fd):
+        raise AssertionError("bq=8, split=1 distances differ from the card "
+                             "schedule's")
+    check("bq=8, split=1 ids vs the card schedule", od8, oi8, fd, fi,
+          rtol=0.0, atol=0.0)
 
     # the sequential walk: one K1 launch per segment, capped by the
     # running k-th
@@ -522,14 +657,13 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
         host_seconds=f"{seq_s:.3f}", leaves_scanned=sst["leaves_scanned"],
         tiles_skipped=sst["tiles_skipped"])
 
-    # every K2 launch of those runs against its plain version, timed
+    # every K2 launch of those runs against its plain version at the same
+    # schedule, timed
     max_err, totals = 0.0, {}
     for name, recs in records.items():
         for i, rec in enumerate(recs):
             pass_name = (("A", "B")[i] if len(recs) == 2 else "AB")
             (kd, ki, ks), _ = timed_call(lambda: real(**rec), device)
-            order = torch.argsort(kd, dim=2, stable=True)
-            kd, ki = torch.gather(kd, 2, order), torch.gather(ki, 2, order)
             (rd, ri, rs, live), plain_ms = timed_call(
                 lambda: ref.stacked_sweep_ref(**rec, return_live=True),
                 device)
@@ -552,15 +686,21 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
                   ri.reshape(-1, k).cpu().numpy(), rd2[:, -1],
                   rtol=0.0, atol=0.0))
             kernel_ms = timed_ms(lambda: real(**rec), reps, device)
+            dev_ms = device_ms(lambda: real(**rec), reps, device,
+                               "stacked_sweep_kernel")
             bytes_ms, ops_ms, pairs = stacked_bound(rec, live, d + 1)
             bound_ms = max(bytes_ms, ops_ms)
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             if pairs != int(live.numel() - ks.sum()):
                 raise AssertionError("the kernel's and the plain version's "
                                      "scanned tiles differ")
+            nqb = rec["visit"].shape[1]
             log("stacked-kernel", mode=name, pass_=pass_name,
-                matches_plain=True, skips=int(ks.sum()), scanned=pairs,
-                kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+                matches_plain=True, bq=rec["bq"], split=rec["split"],
+                ctas=nqb * rec["split"], skips=int(ks.sum()),
+                plain_skips=int(rs.sum()), skips_equal=True, scanned=pairs,
+                kernel_ms=f"{kernel_ms:.4f}", device_ms=dev_ms,
+                plain_ms=f"{plain_ms:.1f}",
                 bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
                 dtype=rec.get("probe_dtype", "f32"))
             if name == "f32":  # the kernels line: both launches of a batch
@@ -568,6 +708,11 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
                                ("bound_ms", bound_ms), ("bytes_ms", bytes_ms),
                                ("ops_ms", ops_ms)):
                     totals[key] = totals.get(key, 0.0) + v
+    bq8_ms = sum(timed_ms(lambda rec=rec: real(**rec), reps, device)
+                 for rec in old_recs)
+    # the whole batch once warm, host clock: delta scan, phase 1, both
+    # launches, the merges and the copies to the host
+    batch_ms = timed_ms(lambda: m.query(q, k, method="stacked"), 3, device)
     brute_topk(pts, qn, k)  # warm-up
     library_ms = timed_ms(lambda: brute_topk(pts, qn, k), reps, device)
     # the rest of a batch, beside the kernel: the delta scan, phase 1
@@ -575,12 +720,14 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
     dd, di, _ = snap.delta_candidates(qn, k)
     delta_ms = timed_ms(lambda: snap.delta_candidates(qn, k), reps, device)
     phase1_ms = timed_ms(lambda: tss.prepare_stacked_operands(
-        stk, qn, bq=BQ, lambda_cap=dd[:, k - 1], lane_pad=True), reps,
+        stk, qn, bq=records["f32"][0]["bq"], lambda_cap=dd[:, k - 1],
+        lane_pad=True), reps,
         device)
     planes = real(**records["f32"][-1])[:2]
     merge_ms = timed_ms(lambda: search.merge_topk_planes(
         *planes, k, extra_d=dd, extra_i=di), reps, device)
     log("stacked-timing", card=repr(card), kernel_ms=f"{totals['ms']:.4f}",
+        bq8_split1_ms=f"{bq8_ms:.4f}", batch_ms=f"{batch_ms:.3f}",
         plain_ms=f"{totals['plain_ms']:.1f}",
         bound_ms=f"{totals['bound_ms']:.4f}",
         library_ms=f"{library_ms:.4f}", delta_ms=f"{delta_ms:.4f}",

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled into its own
 ``build/kernels/lib<name>-<hash>.so`` under the checkout (a directory
-``.gitignore`` lists).  The hash covers the source and the compiler flags,
-so an edited kernel or a changed flag is rebuilt and a stale library is
-never loaded.  :func:`build` starts one ``nvcc`` per source, all at once.
+``.gitignore`` lists).  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited kernel or header or a
+changed flag is rebuilt and a stale library is never loaded.
+:func:`build` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: a host without ``nvcc`` imports this module and
 only fails if a kernel is asked for.
@@ -47,6 +48,8 @@ def _source(name: str) -> Path:
 
 def library_path(name: str = "p2h_sweep") -> Path:
     digest = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update("\0".join(_FLAGS).encode())
     return _BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

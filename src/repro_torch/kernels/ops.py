@@ -78,9 +78,16 @@ def prepare_operands(tree: FlatTree, queries, *, frac=1.0, bq=8,
 
 
 def sweep_search_kernel(tree: FlatTree, queries, k: int = 1, *,
-                        frac: float = 1.0, bq: int = 8, use_ball: bool = True,
+                        frac: float = 1.0, bq: int | None = None,
+                        split: int | None = None, use_ball: bool = True,
                         use_cone: bool = True, lambda_cap=None):
     """Exact (frac=1) / budgeted P2HNNS via the fused sweep kernel.
+
+    ``bq=None`` and ``split=None`` take the device's defaults
+    (:func:`repro_torch.kernels.p2h_scan.resolve_bq` and ``resolve_split``):
+    on the card the smallest block of at least the batch, up to 64, and as
+    many CTAs per block as fill the SMs, up to 8; on the host the JAX
+    package's block of 8 and one walker.
 
     Returns ``(dists (B,k) ascending, ids (B,k), counters (8,))``; the counters
     follow :mod:`repro_torch.core.search` where the kernel can tell them:
@@ -88,13 +95,12 @@ def sweep_search_kernel(tree: FlatTree, queries, k: int = 1, *,
     the phase-1 matmul's ``B * L``.
     """
     queries = torch.atleast_2d(queries)
+    bq = p2h_scan.resolve_bq(bq, queries.shape[0], queries.device)
     ops, B0 = prepare_operands(tree, queries, frac=frac, bq=bq,
                                lambda_cap=lambda_cap)
-    bd, bi, skips = p2h_scan.p2h_sweep(**ops, k=k, bq=bq, use_ball=use_ball,
-                                       use_cone=use_cone)
-    order = torch.argsort(bd, dim=1, stable=True)  # the kernel's is unsorted
-    bd = torch.gather(bd, 1, order)[:B0]
-    bi = torch.gather(bi, 1, order)[:B0]
+    bd, bi, skips = p2h_scan.p2h_sweep(**ops, k=k, bq=bq, split=split,
+                                       use_ball=use_ball, use_cone=use_cone)
+    bd, bi = bd[:B0], bi[:B0]  # sorted ascending by the kernel
     n_visit = ops["visit"].numel()
     nskip = skips.sum()
     counters = torch.zeros(8, dtype=torch.long, device=bd.device)

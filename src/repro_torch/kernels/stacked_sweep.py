@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bounds
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, p2h_scan, ref
 from repro_torch.launch.platform import ensure_full_precision
 
 __all__ = ["StackedLeaves", "stacked_sweep", "stacked_sweep_search",
@@ -94,8 +94,10 @@ _BF16_EPS = 2.0 ** -8
 #: safety margin on the int8 slack (covers the f32 dequantisation).
 _INT8_SAFETY = 1.05
 
-SUPPORTED_BQ = (1, 2, 4, 8, 16)
-MAX_N0 = 1024  # one thread per tile point
+SUPPORTED_BQ = p2h_scan.SUPPORTED_BQ  # the tile engine of both kernels
+SUPPORTED_SPLIT = p2h_scan.SUPPORTED_SPLIT
+MAX_N0 = p2h_scan.MAX_N0
+_ESIZE = {"f32": 4, "bf16": 2, "int8": 1}  # bytes per point value
 
 
 def _segment_live_tiles(seg) -> int:
@@ -223,8 +225,10 @@ class StackedLeaves:
         and kept through tombstone republishes (a ``geom:`` key).
 
         Returns ``(qpts, scale)``: ``qpts`` is ``(N, L, n0, dp)`` bf16 or
-        int8 (``dp`` padded when ``lane_pad``); ``scale`` is int8's per-tile
-        dequantisation factor ``(N, L, 1)`` f32 (``None`` for bf16):
+        int8 (with ``lane_pad``, ``dp`` zero-padded to 16-byte rows for the
+        kernel's bulk copies: a multiple of 8 or 16 columns); ``scale`` is
+        int8's per-tile dequantisation factor ``(N, L, 1)`` f32 (``None``
+        for bf16):
         ``max |x| / 127`` over the tile, 1.0 where the tile is all zeros
         (pad rows), so no 0/0 is ever formed."""
         if dtype not in ("bf16", "int8"):
@@ -232,7 +236,10 @@ class StackedLeaves:
         key = f"geom:quant:{dtype}:{'lane' if lane_pad else 'raw'}"
         hit = self._derived.get(key)
         if hit is None:
-            base = self.padded_pts() if lane_pad else self.pts
+            base = self.pts
+            if lane_pad:
+                dq = _ceil_to(self.d, 16 // _ESIZE[dtype])
+                base = F.pad(base, (0, dq - self.d))
             if dtype == "bf16":
                 hit = (base.to(torch.bfloat16), None)
             else:
@@ -507,16 +514,19 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("stacked_sweep")
     if lib.stacked_sweep_launch.argtypes is None:  # first use: the ABI
         lib.stacked_sweep_launch.argtypes = (
-            [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 23 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
         lib.stacked_sweep_launch.restype = ctypes.c_int
-        lib.stacked_sweep_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.stacked_sweep_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.stacked_sweep_smem_bytes.restype = ctypes.c_longlong
         lib.stacked_sweep_smem_limit.argtypes = [ctypes.c_int]
         lib.stacked_sweep_smem_limit.restype = ctypes.c_int
+        lib.stacked_sweep_max_clusters.argtypes = [ctypes.c_int] * 7
+        lib.stacked_sweep_max_clusters.restype = ctypes.c_int
     return lib
 
 
-def _check(ops: dict, *, k: int, bq: int, probe_dtype: str) -> tuple:
+def _check(ops: dict, *, k: int, bq: int, probe_dtype: str,
+           split: int = 1) -> tuple:
     """Validate the operands for the kernel; returns (N, B, dp, L, n0, nqb,
     n_visit)."""
     if probe_dtype not in _PTS_DTYPE:
@@ -547,11 +557,15 @@ def _check(ops: dict, *, k: int, bq: int, probe_dtype: str) -> tuple:
         if tuple(ops[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(ops[name].shape)}, "
                              f"expected {shape}")
-    if dpt != dp or dp % _PAD:
+    unit = 16 // _ESIZE[probe_dtype]  # columns of a 16-byte row unit
+    if dpt != dp or dp % unit:
         raise ValueError(f"points and queries need the same width, a "
-                         f"multiple of 4 (got {dpt} and {dp})")
+                         f"multiple of {unit} (got {dpt} and {dp})")
     if bq not in SUPPORTED_BQ:
         raise ValueError(f"bq={bq}: the kernel takes bq in {SUPPORTED_BQ}")
+    if split not in SUPPORTED_SPLIT:
+        raise ValueError(f"split={split}: the kernel takes split in "
+                         f"{SUPPORTED_SPLIT}")
     if B != nqb * bq:
         raise ValueError(f"{B} queries do not make {nqb} blocks of {bq}")
     if not 1 <= n0 <= MAX_N0:
@@ -563,6 +577,49 @@ def _check(ops: dict, *, k: int, bq: int, probe_dtype: str) -> tuple:
         raise ValueError("pts_tiles must be 16-byte and queries 4-byte "
                          "aligned")
     return N, B, dp, L, n0, nqb, n_visit
+
+
+def ring_stages(lib, *, probe_dtype: str, bq: int, split: int, n0: int,
+                dp: int, k: int, device_index: int) -> tuple[int, int]:
+    """``(stages, bytes)``: the deepest slab ring whose shared memory fits
+    one block on the card (:func:`repro_torch.kernels.p2h_scan.
+    deepest_ring`)."""
+    mode = _MODE[probe_dtype]
+    return p2h_scan.deepest_ring(
+        lambda stages: lib.stacked_sweep_smem_bytes(mode, bq, split, n0, dp,
+                                                    k, stages),
+        lib.stacked_sweep_smem_limit(device_index),
+        f"k={k}, n0={n0}, dp={dp}, bq={bq}, split={split}")
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(*, probe_dtype: str, bq: int, split: int, n0: int,
+                        dp: int, k: int) -> int:
+    """How many clusters of ``split`` CTAs the current card runs at once at
+    these shapes (``cudaOccupancyMaxActiveClusters``; -1 on an error)."""
+    lib = _lib()
+    stages, _ = ring_stages(lib, probe_dtype=probe_dtype, bq=bq, split=split,
+                            n0=n0, dp=dp, k=k,
+                            device_index=torch.cuda.current_device())
+    return lib.stacked_sweep_max_clusters(_MODE[probe_dtype], bq, split, n0,
+                                          dp, k, stages)
+
+
+def default_split(ops: dict, *, k: int, bq: int,
+                  probe_dtype: str = "f32") -> int:
+    """The split :func:`stacked_sweep` takes for these operands when given
+    none: :func:`repro_torch.kernels.p2h_scan.card_split` with the card's
+    SM count and cluster occupancy at these shapes on a CUDA device, 1 on
+    the host."""
+    dev = ops["queries"].device
+    nqb = ops["visit"].shape[1]
+    if dev.type != "cuda":
+        return 1
+    n0, dp = ops["pts_tiles"].shape[2:]
+    with torch.cuda.device(dev):
+        return p2h_scan.resolve_split(
+            None, nqb, dev, lambda sp: max_active_clusters(
+                probe_dtype=probe_dtype, bq=bq, split=sp, n0=n0, dp=dp, k=k))
 
 
 # kernel launches of :func:`stacked_sweep` (and nothing else): a run that
@@ -586,6 +643,7 @@ def stacked_sweep(
     *,
     k: int,
     bq: int = 8,
+    split: int | None = None,
     use_ball: bool = True,
     use_cone: bool = True,
     seed_d=None,       # (N, B, k) f32 -- per-segment top-k seed (None: cold)
@@ -600,20 +658,24 @@ def stacked_sweep(
     """The stacked sweep over ``N`` segments in one launch.
 
     Returns ``(dists (N, B, k), ids (N, B, k), skips (N, B//bq, 1) i32)``;
-    on the card the per-segment top-k is unsorted.  ``skips`` counts
-    block-granular tile skips per segment, pad and dead tiles included.
-    ``probe_dtype != "f32"`` is the quantised probe: the returned dists are
-    widened upper bounds, not distances.  Host tensors run the plain
-    version; CUDA tensors launch ``csrc/stacked_sweep.cu`` or raise.
+    each segment's top-k sorted ascending.  ``skips`` counts block-granular
+    tile skips per segment, pad and dead tiles included.  ``split`` is the
+    visit schedule of :func:`repro_torch.kernels.ref.stacked_sweep_ref`
+    (CTAs per query block on the card); ``None`` is
+    :func:`default_split`'s choice for the device.  ``probe_dtype !=
+    "f32"`` is the quantised probe: the returned dists are widened upper
+    bounds, not distances.  Host tensors run the plain version; CUDA
+    tensors launch ``csrc/stacked_sweep.cu`` or raise.
     """
     dev = queries.device
     if dev.type == "cpu":
         return ref.stacked_sweep_ref(
             pts_tiles, ids_tiles, rx_tiles, xc_tiles, xs_tiles, leaf_cnorm,
             queries, qnorm, cap, leaf_ip, leaf_lb, visit, k=k, bq=bq,
-            use_ball=use_ball, use_cone=use_cone, seed_d=seed_d,
-            seed_i=seed_i, global_seed=global_seed, probe_dtype=probe_dtype,
-            sq=sq, tile_scale=tile_scale, slack_a=slack_a, slack_b=slack_b)
+            split=1 if split is None else split, use_ball=use_ball,
+            use_cone=use_cone, seed_d=seed_d, seed_i=seed_i,
+            global_seed=global_seed, probe_dtype=probe_dtype, sq=sq,
+            tile_scale=tile_scale, slack_a=slack_a, slack_b=slack_b)
     if dev.type != "cuda":
         raise ValueError(f"stacked_sweep runs on cuda or cpu tensors, not "
                          f"{dev}")
@@ -636,15 +698,15 @@ def stacked_sweep(
         tile_scale=filled(tile_scale, (N, L, 1), 1.0),
         slack_a=filled(slack_a, (N, L, 1), 0.0),
         slack_b=filled(slack_b, (N, L, 1), 0.0))
-    N, B, dp, L, n0, nqb, n_visit = _check(ops, k=k, bq=bq,
-                                           probe_dtype=probe_dtype)
+    N, B, dp, L, n0, nqb, n_visit = _check(
+        ops, k=k, bq=bq, probe_dtype=probe_dtype,
+        split=1 if split is None else split)
+    if split is None:
+        split = default_split(ops, k=k, bq=bq, probe_dtype=probe_dtype)
     lib = _lib()
-    smem = lib.stacked_sweep_smem_bytes(bq, n0, dp, k)
-    limit = lib.stacked_sweep_smem_limit(dev.index)
-    if smem > limit:
-        raise ValueError(
-            f"k={k}, n0={n0}, dp={dp}, bq={bq} need {smem} bytes of shared "
-            f"memory per block; this card allows {limit}")
+    stages, _ = ring_stages(lib, probe_dtype=probe_dtype, bq=bq, split=split,
+                            n0=n0, dp=dp, k=k, device_index=dev.index)
+    rows = p2h_scan.visit_rows(ids_tiles, visit)
     out_d = torch.empty((N, B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((N, B, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((N, nqb, 1), dtype=torch.int32, device=dev)
@@ -652,17 +714,19 @@ def stacked_sweep(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.stacked_sweep_launch(
-            ptr["visit"], ptr["queries"], ptr["qnorm"], ptr["sq"],
-            ptr["cap"], ptr["global_seed"], ptr["seed_d"], ptr["seed_i"],
-            ptr["leaf_ip"], ptr["leaf_lb"], ptr["leaf_cnorm"],
-            ptr["tile_scale"], ptr["slack_a"], ptr["slack_b"],
-            ptr["pts_tiles"], ptr["ids_tiles"], ptr["rx_tiles"],
-            ptr["xc_tiles"], ptr["xs_tiles"], out_d.data_ptr(),
-            out_i.data_ptr(), out_s.data_ptr(), _MODE[probe_dtype], N, nqb,
-            bq, L, n0, dp, n_visit, k, int(use_ball), int(use_cone), stream)
+            ptr["visit"], rows.data_ptr(), ptr["queries"], ptr["qnorm"],
+            ptr["sq"], ptr["cap"], ptr["global_seed"], ptr["seed_d"],
+            ptr["seed_i"], ptr["leaf_ip"], ptr["leaf_lb"],
+            ptr["leaf_cnorm"], ptr["tile_scale"], ptr["slack_a"],
+            ptr["slack_b"], ptr["pts_tiles"], ptr["ids_tiles"],
+            ptr["rx_tiles"], ptr["xc_tiles"], ptr["xs_tiles"],
+            out_d.data_ptr(), out_i.data_ptr(), out_s.data_ptr(),
+            _MODE[probe_dtype], N, nqb, bq, split, L, n0, dp, n_visit, k,
+            int(use_ball), int(use_cone), stages, stream)
     if err != 0:
         raise RuntimeError(f"stacked_sweep kernel launch failed: CUDA error "
-                           f"{err}")
+                           f"{err} (bq={bq}, split={split}, "
+                           f"stages={stages})")
     global LAUNCHES
     LAUNCHES += 1
     return out_d, out_i, out_s
@@ -678,19 +742,20 @@ def _quant_probe_operands(probe_dtype, ops, qpts, qscale, radii, cnorm, d):
     queries plus the dequantisation and slack scalars.  Returns
     ``(qops, quant_kw)``: ``run(**qops, **quant_kw)`` is the quantised
     pass A."""
+    # the queries at the plane's width (zero columns change no product)
+    qf = F.pad(ops["queries"], (0, qpts.shape[-1] - ops["queries"].shape[1]))
     if probe_dtype == "bf16":
-        qq = ops["queries"].to(torch.bfloat16)
+        qq = qf.to(torch.bfloat16)
         sqv = torch.zeros_like(ops["qnorm"])
         ts = None
     else:  # int8: a per-query scale, zero-guarded like the tile scales
-        qf = ops["queries"]
         mq = torch.amax(torch.abs(qf), dim=1, keepdim=True)
         sqv = torch.where(mq > 0.0, mq / 127.0, torch.ones_like(mq))
         qq = torch.clamp(torch.round(qf / sqv), -127.0, 127.0).to(torch.int8)
         ts = qscale
     sa, sb = quantization_slack(probe_dtype, d=d, leaf_cnorm=cnorm,
                                 leaf_radii=radii, tile_scale=qscale)
-    qops = dict(ops, pts_tiles=qpts, queries=qq)
+    qops = dict(ops, pts_tiles=qpts, queries=qq.contiguous())
     return qops, dict(probe_dtype=probe_dtype, sq=sqv, tile_scale=ts,
                       slack_a=sa, slack_b=sb)
 
@@ -706,7 +771,7 @@ def _widened_probe_cap(cap, pd, k):
 
 
 def _run_stacked(arrays, queries, lambda_cap, extra_d, extra_i, seg_shard,
-                 n_true, *, n0, d, k, frac, bq, use_ball, use_cone,
+                 n_true, *, n0, d, k, frac, bq, split, use_ball, use_cone,
                  use_kernel, probe_tiles, probe_dtype, num_shards, has_extra,
                  sort_planes):
     """Probe pass + main pass + cross-segment merge, on the stack's device.
@@ -731,8 +796,8 @@ def _run_stacked(arrays, queries, lambda_cap, extra_d, extra_i, seg_shard,
     ops, B0 = prepare_stacked_operands(
         stk, queries, frac=frac, bq=bq, lambda_cap=lambda_cap,
         lane_pad=use_kernel)
-    run = functools.partial(stacked_sweep, k=k, bq=bq, use_ball=use_ball,
-                            use_cone=use_cone)
+    run = functools.partial(stacked_sweep, k=k, bq=bq, split=split,
+                            use_ball=use_ball, use_cone=use_cone)
     visit = ops["visit"]
     N, nqb, n_visit = visit.shape
     true_row = torch.arange(N, device=visit.device) < n_true
@@ -807,7 +872,7 @@ def _finish_stacked(bd, bi, skips, probe_skips, extra_d, extra_i,
                 torch.where(m, bd, _INF), torch.where(m, bi, -1), k)
             rows.append(skd[:B0, k - 1])
         shard_kth = torch.stack(rows)  # (S, B)
-    if sort_planes:  # the per-segment top-k is unsorted
+    if sort_planes:  # planes from elsewhere may come unsorted
         order = torch.argsort(bd, dim=2, stable=True)
         bd = torch.gather(bd, 2, order)[:, :B0]
         bi = torch.gather(bi, 2, order)[:, :B0]
@@ -999,20 +1064,21 @@ def _placement(device: torch.device) -> tuple:
 def _signature(stk: StackedLeaves, template: tuple):
     """``(sig, Np, p, probe_dtype)`` of a dispatch of ``template`` against
     ``stk``: the template's knobs resolved against the stack's grid."""
-    (B, k, frac, bq, use_ball, use_cone, use_kernel, interpret, probe_tiles,
-     probe_route, probe_dtype, num_shards, has_extra, extra_k, has_cap,
-     sort_planes, _mesh, mesh_axis) = template
+    (B, k, frac, bq, split, use_ball, use_cone, use_kernel, interpret,
+     probe_tiles, probe_route, probe_dtype, num_shards, has_extra, extra_k,
+     has_cap, sort_planes, _mesh, mesh_axis) = template
     p = resolve_probe_tiles(probe_tiles, _n_visit(stk, frac),
                             route=probe_route)
     pdt = resolve_probe_dtype(probe_dtype, p)
     Np = _bucket_segments(stk.num_segments)
-    sig = (Np, stk.num_tiles, stk.n0, stk.d, B, k, frac, bq, use_ball,
-           use_cone, use_kernel, interpret, p, pdt, num_shards, has_extra,
-           extra_k, has_cap, sort_planes, _placement(stk.device), mesh_axis)
+    sig = (Np, stk.num_tiles, stk.n0, stk.d, B, k, frac, bq, split,
+           use_ball, use_cone, use_kernel, interpret, p, pdt, num_shards,
+           has_extra, extra_k, has_cap, sort_planes, _placement(stk.device),
+           mesh_axis)
     return sig, Np, p, pdt
 
 
-def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq,
+def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq, split,
                       use_ball, use_cone, lambda_cap, probe_tiles,
                       probe_route="snapshot", probe_dtype=None,
                       extra_d=None, extra_i=None, shard_bounds=None,
@@ -1029,9 +1095,11 @@ def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq,
     q2 = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32,
                                           device=stk.device))
     B = int(q2.shape[0])
+    bq = p2h_scan.resolve_bq(bq, B, stk.device)
     extra_k = int(extra_d.shape[1]) if has_extra else 0
-    template = (B, k, float(frac), int(bq), bool(use_ball), bool(use_cone),
-                use_kernel, False,
+    template = (B, k, float(frac), int(bq),
+                None if split is None else int(split), bool(use_ball),
+                bool(use_cone), use_kernel, False,
                 None if probe_tiles is None else int(probe_tiles),
                 probe_route, probe_dtype, num_shards, has_extra, extra_k,
                 lambda_cap is not None, bool(sort_planes), None, mesh_axis)
@@ -1052,7 +1120,7 @@ def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq,
                        extra_i if has_extra else None,
                        seg_shard.to(stk.device), N,
                        n0=stk.n0, d=stk.d, k=k, frac=frac, bq=bq,
-                       use_ball=use_ball, use_cone=use_cone,
+                       split=split, use_ball=use_ball, use_cone=use_cone,
                        use_kernel=use_kernel, probe_tiles=p,
                        probe_dtype=pdt, num_shards=num_shards,
                        has_extra=has_extra, sort_planes=sort_planes)
@@ -1060,7 +1128,7 @@ def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq,
         bd, bi, fd, fi, counters, seg_skips, shard_kth, probe_skips = out
         out = (bd[:N], bi[:N], fd, fi, counters, seg_skips[:N],
                shard_kth, probe_skips)
-    return out, p, pdt
+    return out, p, pdt, bq
 
 
 def warm_stacked(stk: StackedLeaves, templates=None) -> int:
@@ -1077,7 +1145,8 @@ def warm_stacked(stk: StackedLeaves, templates=None) -> int:
 
 
 def stacked_sweep_search(stk: StackedLeaves, queries, k: int = 1, *,
-                         frac: float = 1.0, bq: int = 8,
+                         frac: float = 1.0, bq: int | None = None,
+                         split: int | None = None,
                          use_ball: bool = True, use_cone: bool = True,
                          lambda_cap=None, probe_tiles: int = 0,
                          probe_dtype: str | None = None,
@@ -1087,20 +1156,23 @@ def stacked_sweep_search(stk: StackedLeaves, queries, k: int = 1, *,
     Returns ``(dists (N, B, k) ascending, global ids (N, B, k),
     counters (8,), per-segment skip counts (N,))``.  ``probe_tiles > 0``
     runs the two-pass form; the default 0 is one pass under the entry cap.
-    The serving entry point is :func:`stacked_sweep_query`.
+    The serving entry point is :func:`stacked_sweep_query`; ``bq`` and
+    ``split`` are as there.
     """
-    out, _, _ = _call_run_stacked(stk, queries, k, frac=frac, bq=bq,
-                                  use_ball=use_ball, use_cone=use_cone,
-                                  lambda_cap=lambda_cap,
-                                  probe_tiles=probe_tiles,
-                                  probe_dtype=probe_dtype,
-                                  mesh=mesh, mesh_axis=mesh_axis)
+    out, _, _, _ = _call_run_stacked(stk, queries, k, frac=frac, bq=bq,
+                                     split=split, use_ball=use_ball,
+                                     use_cone=use_cone,
+                                     lambda_cap=lambda_cap,
+                                     probe_tiles=probe_tiles,
+                                     probe_dtype=probe_dtype,
+                                     mesh=mesh, mesh_axis=mesh_axis)
     bd, bi, _, _, counters, seg_skips, _, _ = out
     return bd, bi, counters, seg_skips
 
 
 def stacked_sweep_query(stk: StackedLeaves, queries, k: int = 1, *,
-                        frac: float = 1.0, bq: int = 8,
+                        frac: float = 1.0, bq: int | None = None,
+                        split: int | None = None,
                         use_ball: bool = True, use_cone: bool = True,
                         lambda_cap=None, probe_tiles: int | None = None,
                         probe_route: str = "snapshot",
@@ -1116,6 +1188,12 @@ def stacked_sweep_query(stk: StackedLeaves, queries, k: int = 1, *,
     they also seed the in-launch global top-k.  ``probe_tiles=None`` is
     ``probe_route``'s default.  ``shard_bounds`` (segments per shard, in
     stack order) adds per-shard merged k-ths (``info["shard_kth"]``).
+    ``bq`` and ``split`` are the kernel's query block and CTAs per block
+    (``None``: the device's defaults, as for the sweep kernel --
+    :func:`repro_torch.kernels.p2h_scan.resolve_bq` and
+    :func:`default_split`: 64 and as many CTAs as fill the card in one
+    wave on a CUDA device, the JAX package's 8 and one walker on the
+    host).
 
     ``info``: ``seg_skips`` (N,), ``forced_skips`` (N,) -- the pad/dead
     tiles each segment's visit lists force-skip -- ``shard_kth``,
@@ -1123,16 +1201,12 @@ def stacked_sweep_query(stk: StackedLeaves, queries, k: int = 1, *,
     ``mesh_devices`` (1: one device).  A ``mesh`` of more than one device
     raises ``NotImplementedError``.
     """
-    out, p, pdt = _call_run_stacked(stk, queries, k, frac=frac, bq=bq,
-                                    use_ball=use_ball, use_cone=use_cone,
-                                    lambda_cap=lambda_cap,
-                                    probe_tiles=probe_tiles,
-                                    probe_route=probe_route,
-                                    probe_dtype=probe_dtype,
-                                    extra_d=extra_d, extra_i=extra_i,
-                                    shard_bounds=shard_bounds,
-                                    sort_planes=False,
-                                    mesh=mesh, mesh_axis=mesh_axis)
+    out, p, pdt, bq = _call_run_stacked(
+        stk, queries, k, frac=frac, bq=bq, split=split, use_ball=use_ball,
+        use_cone=use_cone, lambda_cap=lambda_cap, probe_tiles=probe_tiles,
+        probe_route=probe_route, probe_dtype=probe_dtype, extra_d=extra_d,
+        extra_i=extra_i, shard_bounds=shard_bounds, sort_planes=False,
+        mesh=mesh, mesh_axis=mesh_axis)
     _, _, fd, fi, counters, seg_skips, shard_kth, probe_skips = out
     B = int(torch.atleast_2d(torch.as_tensor(queries)).shape[0])
     nqb = -(-B // bq)

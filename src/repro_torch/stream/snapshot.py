@@ -247,7 +247,8 @@ class Snapshot:
               frac: float = 1.0, lambda_cap=None,
               return_counters: bool = False, include_deltas: bool = True,
               stacked: bool | None = None, probe_tiles: int | None = None,
-              probe_dtype: str | None = None,
+              probe_dtype: str | None = None, bq: int | None = None,
+              split: int | None = None,
               mesh=None, mesh_axis: str = "shard"):
         """Exact (or beam-budgeted) top-k over the snapshot's live set.
 
@@ -264,7 +265,12 @@ class Snapshot:
         ``stacked=True``.  ``probe_tiles`` is the probe-pass width (None =
         default; 0 = one pass) and ``probe_dtype`` its precision
         ("f32"/"bf16"/"int8"; answers are exact either way).  ``mesh``
-        with more than one device raises ``NotImplementedError``.
+        with more than one device raises ``NotImplementedError``.  ``bq``
+        and ``split`` set the kernels' query block and CTAs per block, on
+        the stacked launch and on the sequential ``pallas``/``kernel`` walk
+        (``None``: the device's defaults, 64 and as many CTAs as fill the
+        card in one wave on a CUDA device, 8 and one on the host;
+        :func:`repro_torch.kernels.stacked_sweep.stacked_sweep_query`).
         """
         q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
                             device=self.device)
@@ -291,8 +297,8 @@ class Snapshot:
                 cap = torch.minimum(cap, ext)
             bd, bi, cnt = self._stacked_query(
                 q, k, cap=cap, probe_tiles=probe_tiles,
-                probe_dtype=probe_dtype, extra_d=bd, extra_i=bi, mesh=mesh,
-                mesh_axis=mesh_axis)
+                probe_dtype=probe_dtype, extra_d=bd, extra_i=bi, bq=bq,
+                split=split, mesh=mesh, mesh_axis=mesh_axis)
             counters += cnt.cpu().numpy().astype(np.int64)
         else:
             for seg in self.segments:
@@ -306,7 +312,8 @@ class Snapshot:
                 sd, si, cnt = _segment_query(seg.tree, q, k, method=method,
                                              frac=frac,
                                              variant=self.variant,
-                                             lambda_cap=cap)
+                                             lambda_cap=cap, bq=bq,
+                                             split=split)
                 g = torch.from_numpy(seg.gids).to(self.device)
                 sg = torch.where(si >= 0,
                                  g[torch.clamp(si, 0, len(g) - 1).long()],
@@ -356,7 +363,8 @@ class Snapshot:
 
     def _stacked_query(self, q, k: int, *, cap, probe_tiles=None,
                        probe_dtype=None, extra_d=None, extra_i=None,
-                       mesh=None, mesh_axis: str = "shard"):
+                       bq=None, split=None, mesh=None,
+                       mesh_axis: str = "shard"):
         """One two-pass stacked launch over all segments (probe + main +
         merge with the ``extra`` delta candidates); returns the merged
         ``(dists (B, k), global ids (B, k), counters)`` on the device."""
@@ -366,13 +374,13 @@ class Snapshot:
         fd, fi, cnt, _ = stacked_sweep_query(
             self.stacked_leaves(), q, k, lambda_cap=cap,
             probe_tiles=probe_tiles, probe_dtype=probe_dtype,
-            extra_d=extra_d, extra_i=extra_i,
+            extra_d=extra_d, extra_i=extra_i, bq=bq, split=split,
             use_ball=is_bc, use_cone=is_bc, mesh=mesh, mesh_axis=mesh_axis)
         return fd, fi, cnt
 
 
 def _segment_query(tree: FlatTree, q, k: int, *, method: str, frac: float,
-                   variant: str, lambda_cap) -> Any:
+                   variant: str, lambda_cap, bq=None, split=None) -> Any:
     """One search call over one segment tree (local ids returned);
     ``pallas`` (or ``kernel``) is the sweep kernel route."""
     is_bc = variant == "bc"
@@ -389,5 +397,6 @@ def _segment_query(tree: FlatTree, q, k: int, *, method: str, frac: float,
         from repro_torch.kernels import ops
 
         return ops.sweep_search_kernel(tree, q, k, frac=1.0,
-                                       lambda_cap=lambda_cap, **common)
+                                       lambda_cap=lambda_cap, bq=bq,
+                                       split=split, **common)
     raise ValueError(f"unknown method {method!r}")

@@ -41,17 +41,24 @@ def _setup(n, d, n0, nq, seed=0, kind="planted"):
     return x, normalize_query(q), build_tree(x, n0=n0, seed=seed)
 
 
-def _kernel_vs_plain(opnds, k, bq, **kw):
+def _kernel_vs_plain(opnds, k, bq, split=None, exact=False, **kw):
+    """The kernel and its plain version at the same schedule (``split``:
+    the wrapper's default for the card when None): ids under the tie rule,
+    skip counts equal, and with ``exact`` distances bit for bit."""
+    if split is None:
+        split = p2h_scan.default_split(opnds, k=k, bq=bq)
     before = p2h_scan.p2h_sweep.launches
-    kd, ki, ks = p2h_scan.p2h_sweep(**opnds, k=k, bq=bq, **kw)
+    kd, ki, ks = p2h_scan.p2h_sweep(**opnds, k=k, bq=bq, split=split, **kw)
     torch.cuda.synchronize()
     assert p2h_scan.p2h_sweep.launches == before + 1
     order = torch.argsort(kd, dim=1, stable=True)
     kd, ki = torch.gather(kd, 1, order), torch.gather(ki, 1, order)
-    rd, ri, rs = ref.p2h_sweep_ref(**opnds, k=k, bq=bq, **kw)
+    rd, ri, rs = ref.p2h_sweep_ref(**opnds, k=k, bq=bq, split=split, **kw)
     assert_topk_parity(kd.cpu().numpy(), ki.cpu().numpy(), rd.cpu().numpy(),
                        ri.cpu().numpy())
     assert torch.equal(ks, rs)
+    if exact:
+        assert torch.equal(kd, rd)
     return ks
 
 
@@ -81,19 +88,21 @@ def test_kernel_bound_toggles_and_budget(cuda, use_ball, use_cone, frac):
     _kernel_vs_plain(opnds, 10, 8, use_ball=use_ball, use_cone=use_cone)
 
 
-def test_kernel_all_skipped_block(cuda):
-    """A zero cap makes every tile of block 0 a skip: nothing is scored and
-    the block's top-k stays empty; block 1 (no cap) is scanned normally."""
+@pytest.mark.parametrize("split", [1, 2, 8])
+def test_kernel_all_skipped_block(cuda, split):
+    """A zero cap makes every tile of block 0 a skip (on every CTA of its
+    cluster): the block's top-k stays empty; block 1 (no cap) is scanned
+    normally."""
     _, qn, tree = _setup(3000, 16, 64, 16, seed=2)
     cap = torch.full((16,), float("inf"))
     cap[:8] = 0.0
     opnds, _ = ops.prepare_operands(tree.to(cuda),
                                     torch.from_numpy(qn).to(cuda),
                                     lambda_cap=cap)
-    ks = _kernel_vs_plain(opnds, 10, 8)
+    ks = _kernel_vs_plain(opnds, 10, 8, split)
     n_visit = opnds["visit"].shape[1]
     assert int(ks[0, 0]) == n_visit and int(ks[1, 0]) < n_visit
-    kd, ki, _ = p2h_scan.p2h_sweep(**opnds, k=10)
+    kd, ki, _ = p2h_scan.p2h_sweep(**opnds, k=10, split=split)
     assert torch.isinf(kd[:8]).all() and (ki[:8] == -1).all()
     assert torch.isfinite(kd[8:]).all()
 
@@ -111,12 +120,104 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         p2h_scan.p2h_sweep(**opnds, k=3, bq=3)
 
 
+# ---------------------------------- the redesigned K1: bq and split schedules
+@pytest.mark.parametrize("bq,split,n0,k", [
+    (1, 1, 64, 1), (1, 2, 256, 10), (1, 8, 512, 64),
+    (8, 1, 256, 10), (8, 2, 512, 1), (8, 8, 64, 64),
+    (16, 1, 512, 64), (16, 2, 64, 10), (16, 8, 256, 1),
+    (32, 1, 64, 64), (32, 2, 256, 10), (32, 8, 512, 10),
+    (64, 1, 256, 64), (64, 2, 512, 10), (64, 8, 64, 1),
+    (64, 6, 256, 32), (8, 6, 256, 33),  # the register top-k's limit
+])
+def test_kernel_matches_plain_at_every_schedule(cuda, bq, split, n0, k):
+    """Three query blocks at every supported block size and split, tiles of
+    64 to 512 rows (up to two passes of the slab ring), k from 1 to 64.
+    Distances are bit for bit where the plain version's cuBLAS ``bmm`` is a
+    batch of several multi-row products (it sums in column order there, as
+    the kernel does); a batch of single-row products or a single product
+    takes other algorithms, and is held at the tie rule's tolerance."""
+    _, qn, tree = _setup(6000, 20, n0, 3 * bq, seed=bq + split)
+    opnds, _ = ops.prepare_operands(tree.to(cuda),
+                                    torch.from_numpy(qn).to(cuda), bq=bq)
+    _kernel_vs_plain(opnds, k, bq, split, exact=bq > 1)
+
+
+@pytest.mark.parametrize("split", [1, 2, 8])
+@pytest.mark.parametrize("kw", [dict(frac=0.3), dict(capped=True),
+                                dict(use_ball=False), dict(use_cone=False)])
+def test_kernel_budget_caps_and_bounds_at_bq64(cuda, split, kw):
+    kw = dict(kw)
+    x, qn, tree = _setup(5000, 24, 64, 128, seed=11)
+    cap = None
+    if kw.pop("capped", False):  # the true 10th, widened: a valid bound
+        cap = torch.from_numpy(oracle(append_ones(x), qn, 10)[0][:, -1]
+                               * 1.001).float()
+    frac = kw.pop("frac", 1.0)
+    opnds, _ = ops.prepare_operands(tree.to(cuda),
+                                    torch.from_numpy(qn).to(cuda), bq=64,
+                                    frac=frac, lambda_cap=cap)
+    _kernel_vs_plain(opnds, 10, 64, split, exact=True, **kw)
+
+
+def test_kernel_default_schedule_on_card(cuda):
+    """``bq=None`` is the card's block and ``split=None`` the largest split
+    whose clusters all run at once; the result equals the oracle."""
+    x, q = make_p2h_dataset(20000, 32, kind="planted", n_queries=200, seed=9)
+    tree = build_tree(x, n0=128, seed=9)
+    qn = normalize_query(q)
+    q_t = torch.from_numpy(qn).to(cuda)
+    assert p2h_scan.resolve_bq(None, 200, cuda) == 64
+    opnds, _ = ops.prepare_operands(tree.to(cuda), q_t, bq=64)
+    split = p2h_scan.default_split(opnds, k=10, bq=64)
+    nqb = opnds["visit"].shape[0]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 1 <= split <= 8 and nqb * split <= sms
+    assert nqb <= p2h_scan.max_active_clusters(
+        bq=64, split=split, n0=128, dp=opnds["queries"].shape[1], k=10)
+    _kernel_vs_plain(opnds, 10, 64, exact=True)
+    before = p2h_scan.p2h_sweep.launches
+    d, i, _ = ops.sweep_search_kernel(tree.to(cuda), q_t, 10)
+    assert p2h_scan.p2h_sweep.launches == before + 1
+    pts = append_ones(x)
+    assert_exact_topk(d, i, oracle(pts, qn, 11)[1],
+                      torch.from_numpy(pts).to(cuda), q_t)
+
+
+def test_kernel_refusals_never_fall_back(cuda, monkeypatch):
+    """An unsupported bq or split, too much shared memory and a refused
+    cluster launch (16 CTAs, past the portable 8) raise; the plain version
+    is never reached from a CUDA tensor, and nothing counts as a launch."""
+    _, qn, tree = _setup(2000, 12, 64, 64, seed=5)
+    opnds, _ = ops.prepare_operands(tree.to(cuda),
+                                    torch.from_numpy(qn).to(cuda), bq=64)
+
+    def plain(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "p2h_sweep_ref", plain)
+    before = p2h_scan.p2h_sweep.launches
+    with pytest.raises(ValueError, match="bq"):
+        p2h_scan.p2h_sweep(**opnds, k=5, bq=128)
+    with pytest.raises(ValueError, match="split"):
+        p2h_scan.p2h_sweep(**opnds, k=5, bq=64, split=9)
+    with pytest.raises(ValueError, match="shared memory"):
+        p2h_scan.p2h_sweep(**opnds, k=50_000, bq=64, split=1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        p2h_scan._launch(opnds, k=5, bq=64, split=16, use_ball=True,
+                         use_cone=True)
+    assert p2h_scan.p2h_sweep.launches == before
+    kd, _, _ = p2h_scan.p2h_sweep(**opnds, k=5, bq=64, split=2)  # still fine
+    assert torch.isfinite(kd).all()
+
+
 @pytest.mark.parametrize("method", ["kernel", "sweep", "dfs", "beam"])
 def test_index_on_card_matches_host_and_oracle(cuda, method):
     x, q = make_p2h_dataset(6000, 24, kind="planted", n_queries=19, seed=3)
     on_card = P2HIndex.build(x, n0=64, device=cuda)
     on_host = P2HIndex.build(x, n0=64, device="cpu")
     k, kw = 10, dict(frac=0.2) if method == "beam" else {}
+    if method == "kernel":  # the host's schedule, so the counters compare
+        kw = dict(bq=8, split=1)
     cd, ci, cs = on_card.query(q, k, method=method, return_stats=True, **kw)
     hd, hi, hs = on_host.query(q, k, method=method, return_stats=True, **kw)
     assert_topk_parity(cd, ci, hd, hi)
@@ -186,14 +287,19 @@ def _stacked_operands(stk, nq, bq, probe_dtype="f32", seed=1):
     return ops_, kw
 
 
-def _stacked_vs_plain(ops_, kw, k, bq):
+def _stacked_vs_plain(ops_, kw, k, bq, split=None):
+    """K2 and its plain version at the same schedule (``split``: the
+    wrapper's default for the card when None): ids under the tie rule and
+    skip counts equal; returns the sorted distances of both and the
+    skips."""
+    if split is None:
+        split = tss.default_split(ops_, k=k, bq=bq,
+                                  probe_dtype=kw.get("probe_dtype", "f32"))
     before = tss.LAUNCHES
-    kd, ki, ks = tss.stacked_sweep(**ops_, k=k, bq=bq, **kw)
+    kd, ki, ks = tss.stacked_sweep(**ops_, k=k, bq=bq, split=split, **kw)
     torch.cuda.synchronize()
     assert tss.LAUNCHES == before + 1
-    order = torch.argsort(kd, dim=2, stable=True)
-    kd, ki = torch.gather(kd, 2, order), torch.gather(ki, 2, order)
-    rd, ri, rs = ref.stacked_sweep_ref(**ops_, k=k, bq=bq, **kw)
+    rd, ri, rs = ref.stacked_sweep_ref(**ops_, k=k, bq=bq, split=split, **kw)
     assert_topk_parity(kd.reshape(-1, k).cpu().numpy(),
                        ki.reshape(-1, k).cpu().numpy(),
                        rd.reshape(-1, k).cpu().numpy(),
@@ -231,6 +337,101 @@ def test_stacked_kernel_bound_toggles(cuda, use_ball, use_cone):
     ops_, kw = _stacked_operands(stk, 16, 8)
     _stacked_vs_plain(ops_, dict(kw, use_ball=use_ball, use_cone=use_cone),
                       10, 8)
+
+
+@pytest.mark.parametrize("start", ["cold", "seeded", "global"])
+@pytest.mark.parametrize("probe_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("split", [1, 2, 6])
+@pytest.mark.parametrize("bq", [1, 8, 64])
+def test_stacked_kernel_matches_plain_at_every_schedule(cuda, bq, split,
+                                                        probe_dtype, start):
+    """The redesigned K2 at every block size and split of the card, in
+    each probe mode, cold, seeded with pass A's planes, and seeded with
+    pass A's planes and a global seed (pass B's start), on ragged stacks
+    with a dead segment and a bucket-pad row; tiles of 64 or 256 rows and
+    k of 1 or 10 rotate through the cases.  Distances are bit for bit
+    where the plain version's ``bmm`` is a batch of multi-row products
+    (bq > 1); single-row products (bq = 1) take another cuBLAS order and
+    are held at the tie rule's tolerance."""
+    i = [1, 8, 64].index(bq) * 3 + [1, 2, 6].index(split)
+    n0, k = (64, 256)[i % 2], (1, 10)[(i // 2) % 2]
+    sizes = (1500, 420, 1, 900, 700) if n0 == 64 else (4000, 1100, 1, 2600,
+                                                        1800)
+    stk = _stack(cuda, sizes=sizes, n0=n0, seed=i)
+    ops_, kw = _stacked_operands(stk, 2 * bq + 3, bq, probe_dtype, seed=i)
+    if start != "cold":  # pass A's state of a cold probe of 2 tiles
+        sd, si, _ = ref.stacked_sweep_ref(
+            **dict(ops_, visit=ops_["visit"][:, :, :2].contiguous()), k=k,
+            bq=bq, **kw)
+        kw = dict(kw, seed_d=sd, seed_i=si)
+        if start == "global":
+            kw["global_seed"] = search.merge_topk_planes(sd, si, k)[0]
+    kd, rd, ks = _stacked_vs_plain(ops_, kw, k, bq, split)
+    if bq > 1:
+        assert torch.equal(kd, rd)
+    n_visit = ops_["visit"].shape[2]
+    assert (ks[4:] == n_visit).all()  # all-tombstone and bucket-pad rows
+
+
+@pytest.mark.parametrize("k", [32, 33])
+@pytest.mark.parametrize("probe_dtype", ["f32", "int8"])
+def test_stacked_kernel_at_the_register_topk_limit(cuda, k, probe_dtype):
+    """k = 32 is the largest top-k a warp holds in registers while it
+    inserts, k = 33 the smallest held in shared memory: both equal the
+    plain version, seeded as pass B is."""
+    stk = _stack(cuda, sizes=(4000, 1100, 1, 2600, 1800), n0=256, seed=k)
+    ops_, kw = _stacked_operands(stk, 131, 64, probe_dtype, seed=k)
+    sd, si, _ = ref.stacked_sweep_ref(
+        **dict(ops_, visit=ops_["visit"][:, :, :2].contiguous()), k=k,
+        bq=64, **kw)
+    kw = dict(kw, seed_d=sd, seed_i=si)
+    kd, rd, _ = _stacked_vs_plain(ops_, kw, k, 64, 6)
+    assert torch.equal(kd, rd)
+
+
+def test_stacked_kernel_refusals(cuda, monkeypatch):
+    """An unsupported split, too much shared memory and a refused cluster
+    launch (16 CTAs, past the portable 8) raise; nothing counts as a
+    launch, and the plain version is never reached."""
+    stk = _stack(cuda, seed=4)
+    ops_, _ = _stacked_operands(stk, 130, 64)
+
+    def plain(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "stacked_sweep_ref", plain)
+    before = tss.LAUNCHES
+    with pytest.raises(ValueError, match="split"):
+        tss.stacked_sweep(**ops_, k=5, bq=64, split=9)
+    with pytest.raises(ValueError, match="bq"):
+        tss.stacked_sweep(**ops_, k=5, bq=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        tss.stacked_sweep(**ops_, k=50_000, bq=64, split=1)
+    monkeypatch.setattr(tss, "SUPPORTED_SPLIT", tuple(range(1, 17)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tss.stacked_sweep(**ops_, k=5, bq=64, split=16)
+    assert tss.LAUNCHES == before
+    kd, _, _ = tss.stacked_sweep(**ops_, k=5, bq=64, split=2)  # still fine
+    assert torch.isfinite(kd[0]).all()
+
+
+def test_stacked_query_default_schedule_on_card(cuda):
+    """``stacked_sweep_query`` with ``bq=None, split=None`` takes the
+    card's block of 64 and the cluster rule's split, and its answer equals
+    the host's at the JAX package's schedule (bq = 8, split = 1)."""
+    stk = _stack(cuda, sizes=(2500, 900, 1, 1700, 1200), n0=64, seed=7)
+    host = _stack("cpu", sizes=(2500, 900, 1, 1700, 1200), n0=64, seed=7)
+    q = normalize_query(np.random.default_rng(8).normal(
+        size=(150, stk.d)).astype(np.float32))
+    before = tss.LAUNCHES
+    cd, ci, _, cinfo = tss.stacked_sweep_query(stk, torch.from_numpy(q).to(
+        cuda), 10)
+    assert tss.LAUNCHES == before + 2
+    hd, hi, _, _ = tss.stacked_sweep_query(host, torch.from_numpy(q), 10)
+    assert_topk_parity(cd.cpu().numpy(), ci.cpu().numpy(), hd.numpy(),
+                       hi.numpy())
+    assert cinfo["forced_skips"].sum() > 0
+    assert p2h_scan.resolve_bq(None, 150, cuda) == 64
 
 
 def test_stacked_kernel_raises_and_never_falls_back(cuda, monkeypatch):
@@ -271,11 +472,15 @@ def _mutable(device, seed=0):
     return m
 
 
-@pytest.mark.parametrize("kw", [dict(method="stacked"),
-                                dict(method="stacked", probe_dtype="bf16"),
-                                dict(method="stacked", probe_dtype="int8"),
-                                dict(method="stacked", probe_tiles=0),
-                                dict(method="pallas", stacked=False)])
+@pytest.mark.parametrize("kw", [dict(method="stacked", bq=8, split=1),
+                                dict(method="stacked", probe_dtype="bf16",
+                                     bq=8, split=1),
+                                dict(method="stacked", probe_dtype="int8",
+                                     bq=8, split=1),
+                                dict(method="stacked", probe_tiles=0, bq=8,
+                                     split=1),
+                                dict(method="pallas", stacked=False, bq=8,
+                                     split=1)])
 def test_mutable_index_on_card_matches_host(cuda, kw):
     on_card, on_host = _mutable(cuda), _mutable("cpu")
     q = np.random.default_rng(5).normal(size=(19, 17)).astype(np.float32)

@@ -148,12 +148,15 @@ def test_bucketed_arrays_match_jax(stacks, probe_dtype):
         if t.dtype == torch.bfloat16:
             t, j = t.float(), np.asarray(j, np.float32)
         _eq(t, j, name)
-    # the kernel's points are padded to 4 columns, the TPU's to 128
+    # the kernel's points are padded to 16-byte rows (4 f32, 8 bf16 or 16
+    # int8 columns), the TPU's to 128 columns
     tk, _ = tss._bucketed_arrays(ts, use_kernel=True, probe_dtype=probe_dtype)
     jk, _ = jss._bucketed_arrays(js, use_kernel=True, probe_dtype=probe_dtype)
     for name in ("pts", "qpts") if probe_dtype != "f32" else ("pts",):
+        unit = 16 // tk[name].element_size()
         t = tk[name].float()
-        assert t.shape[-1] == 12 and not t[..., ts.d:].any()
+        assert t.shape[-1] == -(-ts.d // unit) * unit
+        assert not t[..., ts.d:].any()
         _eq(t[..., :ts.d], np.asarray(jk[name], np.float32)[..., :ts.d],
             name)
     assert tss._bucketed_arrays(ts, use_kernel=True,
