@@ -3,8 +3,7 @@
 
     python3 chip_smoke.py            # full size: 1,000,000 x 128 planted
 
-Two paths, each through the entry points a user calls, each with its own
-hand-written CUDA kernel:
+Three paths, each through the entry points a user calls:
 
   * slice 1, the paper's: build a BC-Tree over the data, then answer exact
     top-k point-to-hyperplane queries (``P2HIndex.query(method="kernel")``)
@@ -13,7 +12,11 @@ hand-written CUDA kernel:
     sealed segments (7 rounds of ``insert_batch`` + ``compact`` after the
     bulk load), a live delta and deletes over every segment, queried with
     ``method="stacked"`` through the stacked kernel K2
-    (``csrc/stacked_sweep.cu``) in each probe mode.
+    (``csrc/stacked_sweep.cu``) in each probe mode;
+  * slice 5, serving: both indexes served through ``P2HEngine``
+    (micro-batches, dispatch, the lambda cache) -- the frozen one by K1,
+    the mutable one by K2 -- and acknowledged writes recovered from a
+    write-ahead log.
 
 Phases, one line each:
 
@@ -52,7 +55,26 @@ Phases, one line each:
                 device times, bounds, the plain version's time, the f32
                 batch at bq = 8, split = 1, a warm batch and a brute-force
                 scan of the live set
-  8. kernels    one JSON line: per kernel its launches, error and times
+  9. serve      phase 3's and phase 7's indexes behind ``P2HEngine`` at
+                slot_size 1024: the drop-in ``query`` (launches counted from
+                0, K1 for the frozen index, K2 for the mutable one) and the
+                streaming submit/flush/result, each equal to the oracle and
+                bit for bit to the direct route (``method="kernel"`` /
+                ``"stacked"``); a hot trace (256 normals, each 4 times,
+                perturbed) served cold then warm from the lambda cache:
+                warm equal to cold bit for bit, warm skips >= cold; the
+                k-th neighbours of cached queries deleted and the next warm
+                answer held to the oracle over the live set; q/s, p50 and
+                p99 per batch at slot_size 8, 64 and 1024 with launches per
+                batch; the latency of one batch at occupancy 1 and 2 on the
+                ``dfs`` route beside the kernel route; a fresh
+                125,000-point ``MutableP2HIndex`` with a ``ShardWal`` under
+                ``build/``: acknowledged inserts and deletes, ``save``, more
+                writes, ``load(wal=)`` into a new object holding exactly
+                the acknowledged live set and answering as the oracle does
+                (acknowledgement latency and recovery seconds: host I/O)
+  8. kernels    one JSON line, after every phase: per kernel its launches
+                (by phase), error and times
 
 then the card's nvidia-smi line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -63,8 +85,10 @@ arguments; ``run`` takes smaller sizes for a rehearsal on the host.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -82,11 +106,19 @@ PEAK_OPS = {"f32": PEAK_F32_FLOPS, "bf16": 989e12, "int8": 1979e12}
 # the stacked index: rounds of bulk inserts (one sealed segment each),
 # fresh points left in the delta, deleted gids, sequential-walk queries
 ROUNDS, FRESH, DELETES, SEQ_QUERIES = 8, 4096, 10_000, 64
+# serving: the hot trace's distinct normals, the slot sizes timed, the
+# occupancies timed on the dfs route; the durable-writes index and its ops
+HOT, SLOTS, OCCUPANCIES = 256, (8, 64, 1024), (1, 2)
+WAL_N, WAL_INSERTS, WAL_DELETES, WAL_MORE = 125_000, 4096, 1000, 1024
 SRC = Path(__file__).resolve().parent / "src"
+BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
-# probe modes); none may spill
-MAIN_INSTANCES = ("p2h_sweep_kernel<64>", "stacked_sweep_kernel<64,0>",
-                  "stacked_sweep_kernel<64,1>", "stacked_sweep_kernel<64,2>")
+# probe modes; bq = 8 for a serving batch of 8 slots); none may spill
+MAIN_INSTANCES = tuple(
+    f"{name}<{bq}{mode}>" for bq in (64, 8)
+    for name, modes in (("p2h_sweep_kernel", ("",)),
+                        ("stacked_sweep_kernel", (",0", ",1", ",2")))
+    for mode in modes)
 
 
 def log(phase: str, **fields) -> None:
@@ -187,7 +219,9 @@ def check(what, *answers, exact=False, rtol=RTOL, atol=ATOL):
 
 def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         sweep_queries=64, dfs_queries=16, reps=10, sweep_n=None,
-        fresh=FRESH, deletes=DELETES) -> dict:
+        fresh=FRESH, deletes=DELETES, hot=HOT, slots=SLOTS, wal_n=WAL_N,
+        wal_inserts=WAL_INSERTS, wal_deletes=WAL_DELETES,
+        wal_more=WAL_MORE) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
     size; ``sweep_n`` cuts slice 1's depth alone); returns the kernels
     record."""
@@ -222,17 +256,26 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
             if inst not in instances or any(instances[inst][1:]):
                 raise AssertionError(f"{inst}: missing from ptxas' report or "
                                      f"spills ({instances.get(inst)})")
-    k1 = run_sweep(device, card, n=sweep_n or n, d=d, queries=queries,
-                   n0=n0, sweep_queries=sweep_queries,
-                   dfs_queries=dfs_queries, reps=reps)
-    k2 = run_stacked(device, card, n=n, d=d, queries=queries, n0=n0,
-                     reps=reps, fresh=fresh, deletes=deletes)
+    k1, frozen = run_sweep(device, card, n=sweep_n or n, d=d,
+                           queries=queries, n0=n0,
+                           sweep_queries=sweep_queries,
+                           dfs_queries=dfs_queries, reps=reps)
+    k2, mutable = run_stacked(device, card, n=n, d=d, queries=queries,
+                              n0=n0, reps=reps, fresh=fresh, deletes=deletes)
+    served = run_serve(device, card, frozen, mutable, hot=hot, slots=slots,
+                       wal_n=wal_n, wal_inserts=wal_inserts,
+                       wal_deletes=wal_deletes, wal_more=wal_more)
+    for rec, phase in ((k1, "5 query"), (k2, "7 stacked f32")):
+        rec["launches_by_phase"] = {phase: rec["launches"],
+                                    "9 serve": served[rec["name"]]}
+        rec["launches"] = sum(rec["launches_by_phase"].values())
     return {"kernels": [k1, k2]}
 
 
 def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
               dfs_queries, reps) -> dict:
-    """Slice 1, phases 3-6; returns K1's record."""
+    """Slice 1, phases 3-6; returns K1's record and what phase 9 reuses:
+    the index, the raw queries and the oracle's answer to them."""
     import torch
 
     from repro_torch.core.api import P2HIndex
@@ -372,7 +415,7 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, bytes=int(nbytes), flops=int(flops),
         scanned_pairs=pairs, reps=reps)
-    return {
+    record = {
         "name": "p2h_sweep",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/p2h_sweep.cu",
@@ -385,6 +428,8 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+    return record, dict(index=index, x=x, q=q, pts=pts, qn=qn,
+                        oracle=(od, oi, nxt), oracle_ids=oi1)
 
 
 def sweep_bound(opnds: dict, live, d: int, skips, out_bytes: int):
@@ -501,7 +546,8 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
                 rounds=ROUNDS, fresh=FRESH, deletes=DELETES,
                 seq_queries=SEQ_QUERIES) -> dict:
     """Slice 2, phase 7: the mutable index's stacked read path; returns
-    K2's record."""
+    K2's record and what phase 9 reuses: the index, its deleted gids and
+    the oracle's view of its live set."""
     import torch
 
     from repro_torch.core import search
@@ -733,7 +779,7 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
         library_ms=f"{library_ms:.4f}", delta_ms=f"{delta_ms:.4f}",
         phase1_ms=f"{phase1_ms:.4f}", merge_ms=f"{merge_ms:.4f}",
         live_points=len(X), reps=reps)
-    return {
+    record = {
         "name": "stacked_sweep",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stacked_sweep.cu",
@@ -747,6 +793,328 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
                      else "operations"),
         "library_ms": library_ms,
     }
+    return record, dict(index=m, dead=dead_set, oracle=(od_k, oi_k, nxt),
+                        oracle_ids=ref_i, by_gid=by_gid)
+
+
+def run_serve(device, card, frozen: dict, mutable: dict, *, hot, slots,
+              wal_n, wal_inserts, wal_deletes, wal_more) -> dict:
+    """Phase 9: phase 3's frozen index and phase 7's mutable index served
+    through ``P2HEngine``, then the durable writes; returns each kernel's
+    launches on the serving path."""
+    import torch
+
+    from repro_torch.core.balltree import normalize_query
+    from repro_torch.core.exact import exact_search
+    from repro_torch.kernels import p2h_scan
+    from repro_torch.kernels import stacked_sweep as tss
+    from repro_torch.serve import P2HEngine
+
+    k = K
+    index, m, q = frozen["index"], mutable["index"], frozen["q"]
+    queries = len(q)
+    dead = set(mutable["dead"])
+
+    def reset_launches():
+        sync(device)
+        p2h_scan.p2h_sweep.launches = tss.LAUNCHES = 0
+
+    def launches():
+        sync(device)
+        return {"p2h_sweep": p2h_scan.p2h_sweep.launches,
+                "stacked_sweep": tss.LAUNCHES}
+
+    def no_dead(what, ids):
+        if dead & set(np.asarray(ids).ravel().tolist()):
+            raise AssertionError(f"{what}: a deleted gid was returned")
+
+    def live_oracle(qs):
+        """The f32 oracle over the mutable index's current live set:
+        ``(dists, gids, (k+1)-th)``."""
+        X, G = m.snapshot().live_points()
+        od, oi = exact_search(torch.from_numpy(X).to(device),
+                              torch.from_numpy(qs).to(device), k + 1)
+        ref = torch.from_numpy(G.astype(np.int64)).to(device)[oi.long()]
+        return od[:, :k].cpu(), ref[:, :k].cpu(), od[:, k].cpu().numpy()
+
+    def frozen_oracle(qs):
+        od, oi = exact_search(frozen["pts"], torch.from_numpy(qs).to(device),
+                              k + 1)
+        return od[:, :k].cpu(), oi[:, :k].cpu(), od[:, k].cpu().numpy()
+
+    def exact(what, bd, bi, orc):
+        """Hold an answer to the f32 oracle ``orc[:3]`` (ties at the
+        tolerance) and, where ``orc`` also carries the top-(k+1) ids, the
+        points they index and the queries, its ids to the oracle's at
+        float64 distances.  The second is for the main path's queries: on
+        others an f32 route and the f32 oracle may break a tie closer than
+        f32 rounding apart (1.4e-6 at these norms; the f32 oracle's own
+        order stands up to 2.1e-6 off float64, phase 5's ``oracle`` line)."""
+        err = check(f"{what} vs oracle", bd, bi, *orc[:3])
+        if len(orc) > 3:
+            check(f"{what} vs oracle, float64", bd, bi, *orc[3:],
+                  exact=True)
+        return err
+
+    qn = normalize_query(q)
+    qt = torch.from_numpy(qn).to(device)
+    m_orc = (*mutable["oracle"], mutable["oracle_ids"], mutable["by_gid"],
+             qt)
+    f_orc = (*frozen["oracle"], frozen["oracle_ids"], frozen["pts"], qt)
+
+    # the main path: both indexes behind an engine, launches from 0
+    fe = P2HEngine(index, slot_size=queries)
+    me = P2HEngine(m, slot_size=queries)
+    if not (fe.policy.prefer_pallas and fe.policy.small_batch == 0):
+        raise AssertionError(f"card dispatch not resolved: {fe.policy}")
+    reset_launches()
+    t0 = time.perf_counter()
+    fd, fi = fe.query(q, k)
+    md, mi = me.query(q, k)
+    serve_s = time.perf_counter() - t0
+    served = launches()
+    if min(served.values()) < 1:
+        raise AssertionError(f"the serving path skipped a kernel: {served}")
+    routes = (fe.stats()["routes"], me.stats()["routes"])
+    if routes != ({"pallas": 1}, {"stacked": 1}):
+        raise AssertionError(f"serving routes {routes}")
+    errs = [exact("engine(frozen)", fd, fi, f_orc),
+            exact("engine(mutable)", md, mi, m_orc)]
+    no_dead("engine(mutable)", mi)
+    # bit for bit against the direct routes, and the streaming API (now
+    # warm: the drop-in pass filled the cache) against the drop-in answer
+    direct = {"frozen": index.query(q, k, method="kernel"),
+              "mutable": m.query(q, k, method="stacked", probe_dtype="bf16")}
+    for name, eng, (bd, bi) in (("frozen", fe, (fd, fi)),
+                                ("mutable", me, (md, mi))):
+        dd, di = direct[name]
+        if not (np.array_equal(bd, dd) and np.array_equal(bi, di)):
+            raise AssertionError(f"engine({name}) differs from the direct "
+                                 f"route")
+        tickets = [eng.submit(row, k) for row in q]
+        if eng.flush() != 1:
+            raise AssertionError("the stream took more than one batch")
+        got = [eng.result(t) for t in tickets]
+        sd, si = np.stack([g[0] for g in got]), np.stack([g[1] for g in got])
+        if not (np.array_equal(sd, bd) and np.array_equal(si, bi)):
+            raise AssertionError(f"streaming({name}) differs from the "
+                                 f"drop-in answer")
+        log("serve", index=name, slot_size=queries, equals_oracle=True,
+            equals_direct=True, streaming_equal=True,
+            routes=eng.stats()["routes"],
+            cache_hits=eng.cache.stats()["hits"])
+    log("serve", main_path_launches=served, host_seconds=f"{serve_s:.3f}",
+        max_abs_err=max(errs))
+
+    # warm against cold on a hot trace: 256 normals, each 4 times, perturbed
+    rng = np.random.default_rng(SEED + 2)
+    trace = (q[:hot][np.arange(queries) % hot]
+             + rng.normal(scale=1e-3, size=q.shape)).astype(np.float32)
+    tn = normalize_query(trace)
+    engines = {}
+    for name, idx, route, orc in (("frozen", index, "pallas", frozen_oracle),
+                                  ("mutable", m, "stacked", live_oracle)):
+        eng = engines[name] = P2HEngine(idx, slot_size=queries)
+        cold = eng.query(trace, k)
+        st_cold = eng.stats()
+        eng.reset_stats()
+        warm = eng.query(trace, k)
+        st_warm = eng.stats()
+        if not (np.array_equal(warm[0], cold[0])
+                and np.array_equal(warm[1], cold[1])):
+            raise AssertionError(f"{name}: warm answers differ from cold")
+        skips = [s["counters"][route]["tiles_skipped"]
+                 for s in (st_cold, st_warm)]
+        hits = st_warm["lambda_cache"]["hits"]
+        if skips[1] < skips[0] or hits == 0:
+            raise AssertionError(f"{name}: warm skips {skips[1]} < cold "
+                                 f"{skips[0]}, or no cache hit ({hits})")
+        err = exact(f"trace({name})", *cold, orc(tn))
+        if name == "mutable":
+            no_dead("trace(mutable)", cold[1])
+        log("serve-warm", index=name, trace=queries, distinct=hot,
+            warm_equals_cold=True, equals_oracle=True, max_abs_err=err,
+            cold_skips=skips[0], warm_skips=skips[1], cache_hits=hits,
+            cold_ms=f"{st_cold['latency_p50_ms']:.3f}",
+            warm_ms=f"{st_warm['latency_p50_ms']:.3f}")
+
+    # epoch tagging: delete the k-th neighbours of cached queries; the next
+    # warm answer must not trust their stale caps
+    eng = engines["mutable"]
+    victims = {int(g) for g in warm[1][:8, k - 1]}
+    for g in victims:
+        if not m.delete(g):
+            raise AssertionError(f"gid {g} was not live")
+    dead |= victims
+    hits0, evict0 = eng.cache.hits, eng.cache.stale_evictions
+    after = eng.query(trace, k)
+    evicted = eng.cache.stale_evictions - evict0
+    if evicted == 0:
+        raise AssertionError("no cache entry went stale after the deletes")
+    err = exact("trace after deletes", *after, live_oracle(tn))
+    no_dead("trace after deletes", after[1])
+    log("serve-epoch", deleted=len(victims), stale_evictions=evicted,
+        cache_hits=eng.cache.hits - hits0, equals_oracle=True,
+        max_abs_err=err)
+
+    # speed: q/s and per-batch latency by slot size (cold cache each)
+    for slot in slots:
+        for name, idx in (("frozen", index), ("mutable", m)):
+            P2HEngine(idx, slot_size=slot).query(q[:slot], k)  # warm-up
+            eng = P2HEngine(idx, slot_size=slot)
+            reset_launches()
+            t0 = time.perf_counter()
+            tickets = [eng.submit(row, k) for row in q]
+            eng.flush()
+            got = [eng.result(t) for t in tickets]
+            sync(device)
+            wall = time.perf_counter() - t0
+            n_launch = launches()
+            st = eng.stats()
+            bd = np.stack([g[0] for g in got])
+            if not np.isfinite(bd).all():
+                raise AssertionError(f"slot {slot}: non-finite answers")
+            log("serve-speed", card=repr(card), index=name, slot_size=slot,
+                batches=st["batches"], routes=st["routes"],
+                qps=f"{queries / wall:.1f}",
+                p50_ms=f"{st['latency_p50_ms']:.3f}",
+                p99_ms=f"{st['latency_p99_ms']:.3f}",
+                launches_per_batch=",".join(
+                    f"{kn}:{v / st['batches']:g}"
+                    for kn, v in n_launch.items()),
+                cache_hits=st["lambda_cache"]["hits"])
+
+    # one batch at occupancy 1 and 2: the dfs route beside the kernel route
+    for name, idx, route in (("frozen", index, "pallas"),
+                             ("mutable", m, "stacked")):
+        for occ in OCCUPANCIES:
+            row = {}
+            for method in ("dfs", route):
+                eng = P2HEngine(idx, slot_size=8, use_cache=False)
+                if method != "dfs":  # warm-up: the kernel route's buffers
+                    eng.query(q[:occ], k, method=method)
+                    eng.reset_stats()
+                bd, bi = eng.query(q[:occ], k, method=method)
+                if name == "frozen":  # dfs scores with einsum: float64
+                    check(f"{method} at occupancy {occ}", bd, bi,
+                          frozen["oracle_ids"][:occ], frozen["pts"],
+                          qt[:occ], exact=True)
+                row[method] = eng.stats()["latency_p50_ms"]
+            log("serve-occupancy", card=repr(card), index=name,
+                occupancy=occ, dfs_ms=f"{row['dfs']:.3f}",
+                **{f"{route}_ms": f"{row[route]:.3f}"},
+                faster=min(row, key=row.get))
+
+    run_wal(device, card, frozen["x"], q, wal_n=wal_n,
+            wal_inserts=wal_inserts, wal_deletes=wal_deletes,
+            wal_more=wal_more)
+    return served
+
+
+def run_wal(device, card, x, q, *, wal_n, wal_inserts, wal_deletes,
+            wal_more) -> None:
+    """Phase 9, durable writes: acknowledged inserts and deletes on a
+    fresh index with a ``ShardWal``, a ``save``, more writes, and a
+    recovery by ``load(wal=)`` into a new object.  Host I/O: the times are
+    the host clock's, fsync included."""
+    import torch
+
+    from repro_torch.core.balltree import normalize_query
+    from repro_torch.core.exact import exact_search
+    from repro_torch.serve import P2HEngine
+    from repro_torch.stream import (CompactionPolicy, MutableP2HIndex,
+                                    ShardWal, WalConfig)
+
+    k = K
+    root = BUILD / "chip_smoke_wal"
+    shutil.rmtree(root, ignore_errors=True)
+    path = str(root / "shard0.wal")
+    acked, t_ack, t_call = [], {}, {}
+
+    def on_ack(tokens):
+        now = time.perf_counter()
+        for tok in tokens:
+            t_ack[tok] = now
+        acked.extend(tokens)
+
+    rng = np.random.default_rng(SEED + 3)
+    t0 = time.perf_counter()
+    w = MutableP2HIndex.from_data(
+        x[:wal_n], n0=256, device=device,
+        policy=CompactionPolicy(delta_capacity=2 * (wal_inserts + wal_more),
+                                tombstone_frac=0.95, max_segments=32))
+    build_s = time.perf_counter() - t0
+    wal = ShardWal(path, config=WalConfig(), on_ack=on_ack)
+    w.attach_wal(wal)
+
+    def write(op, arg):
+        t = time.perf_counter()
+        if op == "ins":
+            tok = ("ins", w.insert(arg))
+        else:
+            if not w.delete(arg):
+                raise AssertionError(f"gid {arg} was not live")
+            tok = ("del", arg)
+        t_call[tok] = t
+        return tok[1]
+
+    d = x.shape[1]
+    fresh = (x[rng.choice(len(x), wal_inserts + wal_more)]
+             + rng.normal(scale=0.05, size=(wal_inserts + wal_more, d))
+             ).astype(np.float32)
+    for row in fresh[:wal_inserts]:
+        write("ins", row)
+    for g in rng.choice(wal_n, wal_deletes, replace=False):
+        write("del", int(g))
+    wal.commit(force=True)
+    if len(acked) != wal_inserts + wal_deletes:
+        raise AssertionError(f"{len(acked)} writes acknowledged of "
+                             f"{wal_inserts + wal_deletes}")
+    t0 = time.perf_counter()
+    w.save(str(root / "ckpt"))
+    save_s = time.perf_counter() - t0
+    more_dels = wal_more // 4
+    new = [write("ins", row)
+           for row in fresh[wal_inserts:wal_inserts + wal_more - more_dels]]
+    for g in new[-more_dels:]:
+        write("del", g)
+    wal.commit(force=True)
+    live = set(range(wal_n))
+    for op, g in acked:
+        (live.add if op == "ins" else live.discard)(g)
+    lat = np.array([t_ack[t] - t_call[t] for t in t_call]) * 1e3
+    del w, wal, write  # dropped without a close: the log holds every ack
+    gc.collect()
+    t0 = time.perf_counter()
+    r = MutableP2HIndex.load(str(root / "ckpt"), device=device,
+                             wal=ShardWal(path))
+    sync(device)
+    recover_s = time.perf_counter() - t0
+    got = set(r.live_gids().tolist())
+    if got != live:
+        raise AssertionError(f"recovered {len(got)} live gids, "
+                             f"{len(got ^ live)} differ from the "
+                             f"acknowledged {len(live)}")
+    eng = P2HEngine(r, slot_size=len(q))
+    bd, bi = eng.query(q, k)
+    X, G = r.snapshot().live_points()
+    pts = torch.from_numpy(X).to(device)
+    qn = torch.from_numpy(normalize_query(q)).to(device)
+    od, oi1 = exact_search(pts, qn, k + 1)
+    gid_t = torch.from_numpy(G.astype(np.int64)).to(device)
+    ref = gid_t[oi1.long()]
+    err = check("recovered engine vs oracle", bd, bi, od[:, :k].cpu(),
+                ref[:, :k].cpu(), od[:, k].cpu().numpy())
+    log("serve-wal", card=repr(card), clock="host I/O", points=wal_n,
+        writes=len(t_call), acknowledged=len(acked),
+        ack_p50_ms=f"{np.percentile(lat, 50):.3f}",
+        ack_p99_ms=f"{np.percentile(lat, 99):.3f}",
+        build_seconds=f"{build_s:.2f}", save_seconds=f"{save_s:.2f}",
+        recovery_seconds=f"{recover_s:.3f}", live=len(live),
+        recovered_equals_acked=True, equals_oracle=True, max_abs_err=err,
+        routes=eng.stats()["routes"])
+    r.close()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:

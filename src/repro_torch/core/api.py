@@ -110,14 +110,31 @@ class P2HIndex:
         ``method``: ``"dfs"`` (default), ``"sweep"``, ``"beam"`` (with
         ``frac``) or ``"kernel"`` (the fused CUDA sweep; ``"pallas"`` is the
         same route under the JAX package's name).
+
+        ``engine``: a :class:`repro_torch.serve.P2HEngine` to serve the call
+        through (micro-batching, backend auto-dispatch, lambda warm start).
+        The engine's policy picks the backend; ``method`` is ignored (use
+        ``engine.query(..., method=...)`` to force a route).
+        ``return_stats`` keeps the direct path's per-call counter shape
+        (summed over whatever routes the call was dispatched to).
         """
+        recall_target = kw.pop("recall_target", 1.0)
         if engine is not None:
-            raise NotImplementedError(
-                "the serving engine is not ported yet (ROADMAP.md, queue 1, "
-                "item 9: serving); query the index directly")
-        if kw.pop("recall_target", 1.0) < 1.0:
+            if engine.index is not self:
+                raise ValueError("engine serves a different index")
+            # serve anything already pending in the engine's streaming
+            # queue first, so the counter delta below is this call's only
+            engine.flush()
+            before = engine.total_counters()
+            bd, bi = engine.query(queries, k, normalize=normalize,
+                                  recall_target=recall_target)
+            if return_stats:
+                delta = engine.total_counters() - before
+                return bd, bi, search.SearchStats(delta)
+            return bd, bi
+        if recall_target < 1.0:
             raise ValueError(
-                "recall_target needs a serving engine (not ported yet) or an "
+                "recall_target needs a serving engine (engine=...) or an "
                 "explicit budgeted route: method='beam', frac=...")
         q = np.atleast_2d(np.asarray(queries))
         if normalize:

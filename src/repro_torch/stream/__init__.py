@@ -14,11 +14,18 @@ BC-Tree with inline or background compaction and atomic snapshots.
 ``MutableP2HIndex`` (mutable.py)
     The front-end: ``insert`` / ``delete`` / ``query`` / ``compact``,
     ``save`` / ``load`` in the JAX package's checkpoint format.
+``ShardWal`` / ``WalConfig`` (wal.py)
+    Write-ahead log with group-commit fsync: an acknowledged write
+    (``on_ack`` fires after the fsync) survives a crash; recovery is the
+    newest checkpoint plus an idempotent replay of the log's tail.  The
+    JAX package's byte format.
 """
 from repro_torch.stream.compaction import CompactionPlan, CompactionPolicy
 from repro_torch.stream.delta import DeltaBuffer
 from repro_torch.stream.mutable import MutableP2HIndex
 from repro_torch.stream.snapshot import DeltaView, Segment, Snapshot
+from repro_torch.stream.wal import ShardWal, WalConfig
 
 __all__ = ["MutableP2HIndex", "Snapshot", "Segment", "DeltaView",
-           "DeltaBuffer", "CompactionPolicy", "CompactionPlan"]
+           "DeltaBuffer", "CompactionPolicy", "CompactionPlan",
+           "ShardWal", "WalConfig"]

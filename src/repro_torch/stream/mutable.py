@@ -22,6 +22,14 @@ to the new segment before it becomes visible.
 Trees live on the index's ``device`` (the CUDA card unless ``"cpu"`` is
 asked for); the delta buffer and the bookkeeping stay on the host.
 ``save``/``load`` write and read the JAX package's checkpoint format.
+
+Durability: with a :class:`repro_torch.stream.wal.ShardWal` attached
+(:meth:`MutableP2HIndex.attach_wal`), every insert/delete is appended to
+the log before it is acknowledged, the checkpoint records the
+``(wal_offset, wal_seq)`` frontier it covers, and ``load(..., wal=...)``
+replays the log's tail idempotently -- recovery to the last
+*acknowledged* write, not just the last checkpoint.  The log's bytes are
+the JAX package's: a log either package writes replays in the other.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from repro_torch.launch.platform import resolve_device
 from repro_torch.stream.compaction import CompactionPlan, CompactionPolicy
 from repro_torch.stream.delta import DeltaBuffer
 from repro_torch.stream.snapshot import DeltaView, Segment, Snapshot
+from repro_torch.stream.wal import OP_DELETE, OP_INSERT, OP_ROUTER
 
 __all__ = ["MutableP2HIndex"]
 
@@ -46,8 +55,23 @@ logger = logging.getLogger(__name__)
 
 _STATE_FORMAT = "p2h-stream"
 _STATE_VERSION = 1
-_WAL_LATER = ("the write-ahead log is not ported yet (ROADMAP.md, queue 1, "
-              "item 10: sharded + durable)")
+
+
+def query_via_engine(index, engine, queries, k, *, method, normalize,
+                     return_stats, kw):
+    """``query(engine=...)`` delegation of the mutable index: flush pending
+    streaming work, serve through the engine, report this call's counter
+    delta."""
+    if engine.mutable is not index:
+        raise ValueError("engine serves a different index")
+    engine.flush()
+    before = engine.total_counters()
+    bd, bi = engine.query(queries, k, normalize=normalize, method=method,
+                          **kw)
+    if return_stats:
+        delta = engine.total_counters() - before
+        return bd, bi, search.SearchStats(delta)
+    return bd, bi
 
 
 class MutableP2HIndex:
@@ -86,6 +110,13 @@ class MutableP2HIndex:
         self._tl = threading.local()  # delete-path compaction tripwire
         # write admission + close() leak tripwire
         self._admission = {"seals": 0, "stalls": 0, "compactor_leaked": 0}
+        #: optional repro_torch.stream.wal.ShardWal -- when attached, every
+        #: insert/delete appends a record (under the writer lock, which
+        #: also serialises the single-writer log) and the public write
+        #: calls run the group commit before returning
+        self._wal = None
+        self.last_saved_wal = None  # (wal_offset, wal_seq) of last save
+        self._wal_replayed_seq = 0  # highest seq wal_replay applied
 
         self._background = bool(background)
         self._stop = False
@@ -147,7 +178,9 @@ class MutableP2HIndex:
         with self._lock:
             gid = self._insert_one_locked(x, gid=gid)
             self._publish()
+            self._wal_log_insert(x, gid)
             self._maybe_compact_locked()
+        self._wal_commit()
         return gid
 
     def insert_batch(self, points: np.ndarray,
@@ -165,8 +198,10 @@ class MutableP2HIndex:
             for i, x in enumerate(pts):
                 out[i] = self._insert_one_locked(
                     x, gid=None if gids is None else int(gids[i]))
+                self._wal_log_insert(x, int(out[i]))
             self._publish()
             self._maybe_compact_locked()
+        self._wal_commit()
         return out
 
     def _insert_one_locked(self, x: np.ndarray, *,
@@ -206,19 +241,27 @@ class MutableP2HIndex:
         self._max_norm = max(self._max_norm, float(np.linalg.norm(x1)))
         return gid
 
-    def delete(self, gid: int) -> bool:
+    def delete(self, gid: int, *, commit: bool = True) -> bool:
         """Delete by global id; returns False if the id is not live.
 
         A tombstone flip + one snapshot publish.  Compaction never runs on
         this thread: background mode signals the compactor, inline mode
-        defers to the next insert or ``compact()``."""
+        defers to the next insert or ``compact()``.
+
+        ``commit=False`` logs the op but leaves the WAL group commit to the
+        caller; the op is not acknowledged until a commit covers it."""
         gid = int(gid)
         self._tl.in_delete = True
         try:
             with self._lock:
-                return self._delete_locked(gid)
+                ok = self._delete_locked(gid)
+                if ok:
+                    self._wal_log(OP_DELETE, gid)
         finally:
             self._tl.in_delete = False
+        if ok and commit:
+            self._wal_commit()
+        return ok
 
     def _delete_locked(self, gid: int) -> bool:
         loc = self._locator.pop(gid, None)
@@ -246,14 +289,92 @@ class MutableP2HIndex:
             self._compact_event.set()
         return True
 
+    # ------------------------------------------------------------------
+    # write-ahead log (repro_torch.stream.wal)
+    # ------------------------------------------------------------------
     def attach_wal(self, wal) -> None:
-        raise NotImplementedError(_WAL_LATER)
+        """Attach a :class:`repro_torch.stream.wal.ShardWal`: subsequent
+        inserts/deletes are logged (and group-committed) before the write
+        call returns.  Attach *after* any replay -- replayed ops are
+        already in the log and must not be appended again."""
+        with self._lock:
+            self._wal = wal
+
+    def _wal_log_insert(self, x_raw: np.ndarray, gid: int) -> None:
+        """Log one insert (raw ``(dim,)`` row; caller holds the lock)."""
+        if self._wal is not None:
+            self._wal.append(OP_INSERT, gid, self._epoch,
+                             np.asarray(x_raw, np.float32).tobytes(),
+                             token=("ins", int(gid)))
+
+    def _wal_log(self, op: int, gid: int, blob: bytes = b"") -> None:
+        if self._wal is not None:
+            self._wal.append(op, gid, self._epoch, blob,
+                             token=("del", int(gid)) if op == OP_DELETE
+                             else None)
+
+    def _wal_commit(self) -> None:
+        """Group commit (off the writer lock): the public write call's
+        acknowledgement point.  Per :class:`~repro_torch.stream.wal.
+        WalConfig`, either this call's fsync covers the op now, or a later
+        group commit does and the ``on_ack`` callback reports it then."""
+        if self._wal is not None:
+            self._wal.commit()
 
     def wal_replay(self, wal, *, from_offset: int = 0,
                    min_seq: int = 0) -> dict:
-        raise NotImplementedError(_WAL_LATER)
+        """Replay a WAL tail into this (just-restored) index.
+
+        Idempotent: records at ``seq <= min_seq`` (already covered by the
+        checkpoint) are skipped, an insert whose gid is already live is
+        skipped, a delete of a non-live gid is skipped -- so replaying the
+        same tail twice applies each op at most once.  After replay the
+        epoch is bumped past the largest epoch any replayed record
+        carried, so the published epoch stays monotone across a crash.
+        Returns ``{"applied", "skipped", "ops"}``."""
+        applied = skipped = seen = 0
+        with self._lock:
+            # replaying the same log twice into one instance must be a
+            # no-op: the gid-liveness guards alone would re-apply an
+            # insert+delete *pair* (dead gid -> reinsert -> redelete)
+            min_seq = max(min_seq, self._wal_replayed_seq)
+            max_epoch = self._epoch
+            for rec in wal.records(from_offset):
+                if rec.op == OP_ROUTER:  # placement, not data
+                    continue
+                seen += 1
+                self._wal_replayed_seq = max(self._wal_replayed_seq,
+                                             rec.seq)
+                if rec.seq <= min_seq:
+                    skipped += 1
+                    continue
+                max_epoch = max(max_epoch, rec.epoch)
+                if rec.op == OP_INSERT:
+                    if rec.gid in self._locator:
+                        skipped += 1
+                        continue
+                    self._insert_one_locked(rec.point(), gid=rec.gid)
+                    self._publish()
+                    applied += 1
+                elif rec.op == OP_DELETE:
+                    if self._delete_locked(rec.gid):
+                        applied += 1
+                    else:
+                        skipped += 1
+            if max_epoch > self._epoch:
+                # jump past the pre-crash epoch: _publish increments, so
+                # the republished epoch is strictly greater than any
+                # epoch an acked op ever observed
+                self._epoch = max_epoch
+                self._publish()
+            self._maybe_compact_locked()
+        return {"applied": applied, "skipped": skipped, "ops": seen}
 
     # ------------------------------------------------------------------
+    def has_gid(self, gid: int) -> bool:
+        with self._lock:
+            return int(gid) in self._locator
+
     def live_gids(self) -> np.ndarray:
         """Snapshot of the live global ids (sorted, for determinism)."""
         with self._lock:
@@ -327,12 +448,15 @@ class MutableP2HIndex:
         Pins one snapshot for the whole call.  ``method=None`` means
         ``"sweep"``; ``"stacked"`` forces the stacked launch, and
         ``stacked=`` / ``probe_tiles=`` / ``probe_dtype=`` are forwarded to
-        :meth:`Snapshot.query`.  Results are host arrays.
+        :meth:`Snapshot.query`.  Results are host arrays.  ``engine=``
+        routes through a :class:`repro_torch.serve.P2HEngine` built over
+        this index (micro-batching + epoch-tagged lambda warm start), where
+        ``method=None`` means auto-dispatch and a method forces that route.
         """
         if engine is not None:
-            raise NotImplementedError(
-                "the serving engine is not ported yet (ROADMAP.md, queue 1, "
-                "item 9: serving); query the index directly")
+            return query_via_engine(self, engine, queries, k, method=method,
+                                    normalize=normalize,
+                                    return_stats=return_stats, kw=kw)
         q = np.atleast_2d(np.asarray(queries))
         if normalize:
             q = normalize_query(q)
@@ -381,7 +505,8 @@ class MutableP2HIndex:
             raise self._compact_errors.pop(0)
 
     def close(self, *, timeout_s: float = 5.0) -> None:
-        """Stop the background compactor (if any); safe to call twice.  A
+        """Stop the background compactor (if any) and close the attached
+        WAL (final group commit included); safe to call twice.  A
         compactor that does not stop within ``timeout_s`` is leaked (a
         daemon thread), logged and counted in :meth:`admission_stats`."""
         self._stop = True
@@ -396,6 +521,9 @@ class MutableP2HIndex:
                     "leaking daemon thread %s", timeout_s,
                     self._compactor.name)
             self._compactor = None
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None
 
     def _plan_locked(self) -> CompactionPlan:
         plan = self.policy.plan(delta_full=self._delta.full,
@@ -613,7 +741,9 @@ class MutableP2HIndex:
         """Persist segments + delta atomically; returns the step saved.
         Joins any in-flight background compaction under the writer lock
         and folds leftover sealed buffers into a segment first, so the
-        state is always segments + one active delta."""
+        state is always segments + one active delta.  With a WAL attached
+        the checkpoint records the log frontier it covers, and the covered
+        prefix of the log is truncated away."""
         from repro_torch.checkpoint import CheckpointManager
 
         with self._lock:
@@ -623,9 +753,17 @@ class MutableP2HIndex:
             if self._sealed:  # leftovers of a failed background run
                 self._compact_locked(self._plan_locked())
             state, meta = self._state_locked()
+            if self._wal is not None:
+                # everything at seq <= wal_seq is in the serialised state:
+                # restore replays strictly past it
+                meta["wal_offset"] = self._wal.tail_offset()
+                meta["wal_seq"] = self._wal.last_seq
             step = self._epoch
             CheckpointManager(directory, keep=2).save(
                 step, state, blocking=True, extra_meta=meta)
+            if self._wal is not None:
+                self._wal.truncate_prefix(meta["wal_offset"])
+                self.last_saved_wal = (meta["wal_offset"], meta["wal_seq"])
         return step
 
     def _state_locked(self):
@@ -666,12 +804,14 @@ class MutableP2HIndex:
              background: bool = False, wal=None,
              device=None) -> "MutableP2HIndex":
         """Recover a mutable index saved by :meth:`save` (this package's or
-        the JAX package's) onto ``device``."""
+        the JAX package's) onto ``device``.
+
+        ``wal`` (optional :class:`repro_torch.stream.wal.ShardWal`): replay
+        the log's tail past the checkpoint's recorded ``(wal_offset,
+        wal_seq)`` frontier, then attach the log for later writes."""
         from repro_torch.checkpoint import CheckpointManager
         from repro_torch.checkpoint.manager import unflatten
 
-        if wal is not None:
-            raise NotImplementedError(_WAL_LATER)
         mgr = CheckpointManager(directory)
         if step is None:
             step = mgr.latest_step()
@@ -723,6 +863,10 @@ class MutableP2HIndex:
             self._live_count = meta["live_count"]
             self._max_norm = meta["max_norm"]
             self._snapshot = self._make_snapshot()
+        if wal is not None:
+            self.wal_replay(wal, from_offset=meta.get("wal_offset", 0),
+                            min_seq=meta.get("wal_seq", 0))
+            self.attach_wal(wal)
         return self
 
 

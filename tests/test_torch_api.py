@@ -160,11 +160,20 @@ def test_full_precision_policy():
 
 
 def test_engine_and_recall_target_are_refused(pair):
-    _, q, tidx, _, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tidx.query(q, 1, engine=object())
+    """An engine serves only its own index, and ``recall_target`` needs an
+    engine; through its own engine both are served (the budgeted route)."""
+    from repro_torch.serve import P2HEngine
+
+    x, q, tidx, _, _ = pair
+    other = P2HIndex.build(x[:500], n0=32, device="cpu")
+    with pytest.raises(ValueError, match="different index"):
+        tidx.query(q, 1, engine=P2HEngine(other))
     with pytest.raises(ValueError, match="recall_target"):
         tidx.query(q, 1, recall_target=0.9)
+    eng = P2HEngine(tidx)
+    bd, bi = tidx.query(q, 1, engine=eng, recall_target=0.9)
+    assert bd.shape == bi.shape == (len(q), 1)
+    assert set(eng.stats()["routes"]) == {"beam"}
     with pytest.raises(ValueError, match="unknown method"):
         tidx.query(q, 1, method="nope")
 

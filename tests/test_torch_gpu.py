@@ -533,3 +533,52 @@ def test_tombstone_reuploads_only_the_ids_plane(cuda):
     # segment's tree): nothing the size of the points
     assert grown < 4 * stk.ids.nbytes + 4 * stk.valid.nbytes
     assert victim not in set(new.ids.flatten().tolist())
+
+
+# ----------------------------------------------------------------- serving
+def test_engine_dispatch_resolves_to_the_kernel_on_card(cuda):
+    """On a CUDA index the engine prefers the kernel route and opens no DFS
+    window: a lone query launches K1 (the ``"pallas"`` route)."""
+    from repro_torch.serve import P2HEngine
+
+    x, q = make_p2h_dataset(3000, 16, kind="planted", n_queries=4, seed=2)
+    idx = P2HIndex.build(x, n0=64, device=cuda)
+    eng = P2HEngine(idx)
+    assert (eng.policy.prefer_pallas, eng.policy.small_batch) == (True, 0)
+    before = p2h_scan.p2h_sweep.launches
+    bd, bi = eng.query(q[:1], 5)
+    assert p2h_scan.p2h_sweep.launches == before + 1
+    assert eng.stats()["routes"] == {"pallas": 1}
+    dd, di = idx.query(q[:1], 5, method="dfs")
+    assert_topk_parity(bd, bi, dd, di)
+
+
+@pytest.mark.parametrize("index", ["frozen", "mutable"])
+def test_engine_equals_direct_route_cold_and_warm(cuda, index):
+    """The engine's answers equal the direct route's bit for bit on the
+    card -- the kernel route on a frozen index, the stacked route on a
+    mutable one -- cold, and warm from the lambda cache (a valid cap never
+    changes an answer)."""
+    from repro_torch.serve import P2HEngine
+
+    if index == "frozen":
+        x, q = make_p2h_dataset(5000, 24, kind="planted", n_queries=40,
+                                seed=3)
+        idx = P2HIndex.build(x, n0=64, device=cuda)
+        dd, di = idx.query(q, 10, method="kernel")
+        route = "pallas"
+    else:
+        idx = _mutable(cuda, seed=2)
+        q = np.random.default_rng(8).normal(size=(40, 17)).astype(np.float32)
+        dd, di = idx.query(q, 10, method="stacked", probe_dtype="bf16")
+        route = "stacked"
+    eng = P2HEngine(idx, slot_size=len(q))
+    for _ in range(2):  # cold, then every lookup hits
+        bd, bi = eng.query(q, 10)
+        assert np.array_equal(bd, dd) and np.array_equal(bi, di)
+    assert eng.stats()["routes"] == {route: 2}
+    assert eng.cache.hits == len(q)
+    small = P2HEngine(idx, slot_size=8)  # 5 batches at bq = 8
+    for _ in range(2):
+        bd, bi = small.query(q, 10)
+        assert_topk_parity(bd, bi, dd, di)

@@ -313,14 +313,20 @@ def test_background_compaction_stays_exact():
         m.close()
 
 
-def test_refusals(monkeypatch, pair):
+def test_refusals(monkeypatch, pair, tmp_path):
+    """What the mutable index still refuses: an engine over another index,
+    a sharded engine (ROADMAP.md queue 1 item 10), a missing checkpoint
+    with or without a log, and no CUDA device without ``device=``."""
+    from repro_torch.serve import P2HEngine
+
     t, _ = pair
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.query(np.ones((1, DIM + 1), np.float32), engine=object())
+    other = MutableP2HIndex(DIM, device="cpu")
+    with pytest.raises(ValueError, match="different index"):
+        t.query(np.ones((1, DIM + 1), np.float32), engine=P2HEngine(other))
     with pytest.raises(NotImplementedError, match="item 10"):
-        t.attach_wal(object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        MutableP2HIndex.load("nowhere", wal=object())
+        P2HEngine(t, sharded=object())
+    with pytest.raises(FileNotFoundError):
+        MutableP2HIndex.load(str(tmp_path / "nowhere"), wal=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MutableP2HIndex(DIM)
