@@ -16,7 +16,13 @@ Three paths, each through the entry points a user calls:
   * slice 5, serving: both indexes served through ``P2HEngine``
     (micro-batches, dispatch, the lambda cache) -- the frozen one by K1,
     the mutable one by K2 -- and acknowledged writes recovered from a
-    write-ahead log.
+    write-ahead log;
+  * slice 6, the sharded index: a ``ShardedMutableP2HIndex`` of 8 hashed
+    shards queried through the two-round lambda exchange, whose round 2 is
+    one K2 launch over every shard's segments (K1 once per segment on the
+    sequential route), served by ``P2HEngine``, degraded around failing
+    shards, and, on a smaller index with per-shard logs, split, merged,
+    saved and recovered.
 
 Phases, one line each:
 
@@ -73,6 +79,29 @@ Phases, one line each:
                 writes, ``load(wal=)`` into a new object holding exactly
                 the acknowledged live set and answering as the oracle does
                 (acknowledgement latency and recovery seconds: host I/O)
+ 10. sharded    ``ShardedMutableP2HIndex.from_data`` over phase 3's data:
+                8 hashed shards of ~125,000 points, each one sealed
+                segment; 4,096 routed inserts left in the deltas and
+                10,000 deletes.  The default ``query`` (round 2
+                auto-promoted to one K2 launch), ``method="stacked"`` in
+                f32 and with a bf16 probe, and the sequential round 2
+                (``stacked=False, method="pallas"``: K1 once per segment)
+                on 64 queries, each held to the oracle over the live set,
+                no deleted id, ``lambda0`` >= the oracle's k-th; every K2
+                launch of those runs replayed against ``stacked_sweep_ref``
+                at its ``bq``/``split`` (distances bit for bit, skips
+                equal) and one K1 launch against ``p2h_sweep_ref``; a warm
+                exchange batch split into round 1 (eight plain beams),
+                round 2 (its K2 launch by CUDA events) and the merges;
+                ``P2HEngine`` at slot_size 64 and 1024, cold and warm, equal
+                to the direct query, a delete that drops one shard's cache
+                component, q/s and p50/p99; the resilient exchange with
+                shards {3} and {0, 5} failing, equal to the oracle over the
+                live shards; and a 4-shard 125,000-point index with
+                per-shard logs under ``build/chip_smoke_sharded/``:
+                acknowledged writes, ``split_shard`` under exact queries,
+                ``merge_shards``, ``save``, more writes, a drop and
+                ``open``, holding exactly the acknowledged writes
   8. kernels    one JSON line, after every phase: per kernel its launches
                 (by phase), error and times
 
@@ -98,6 +127,12 @@ import numpy as np
 
 K, SEED, BEAM_FRAC = 10, 0, 0.05
 RTOL, ATOL = 1e-5, 1e-6
+# phase 10's tie tolerance in units of u S (``hold64``): u the f32 unit
+# roundoff, S a row's largest sum_j |q_j x_j| over the oracle's candidates.
+# Two routes may swap two points only where their float64 distances differ
+# by less than two f32 errors, each measured at up to 2.96 u S on an H100
+# (the oracle's and the answers' alike; the largest swap gap seen, 1.31)
+U32, TIE_UNITS = 2.0 ** -24, 6.0
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth; dense peaks by input type
 # (f32 outside the tensor cores), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -110,6 +145,12 @@ ROUNDS, FRESH, DELETES, SEQ_QUERIES = 8, 4096, 10_000, 64
 # occupancies timed on the dfs route; the durable-writes index and its ops
 HOT, SLOTS, OCCUPANCIES = 256, (8, 64, 1024), (1, 2)
 WAL_N, WAL_INSERTS, WAL_DELETES, WAL_MORE = 125_000, 4096, 1000, 1024
+# the sharded index: hashed shards (one sealed segment each), the slot
+# sizes it is served at, the failing shard sets of the degraded checks;
+# the durable sharded index: points, shards, acknowledged writes before
+# the split and after the save
+SHARDS, SHARD_SLOTS, FAILING = 8, (64, 1024), ((3,), (0, 5))
+DUR_N, DUR_SHARDS, DUR_WRITES, DUR_MORE = 125_000, 4, (2048, 512), (512, 128)
 SRC = Path(__file__).resolve().parent / "src"
 BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
@@ -221,7 +262,9 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         sweep_queries=64, dfs_queries=16, reps=10, sweep_n=None,
         fresh=FRESH, deletes=DELETES, hot=HOT, slots=SLOTS, wal_n=WAL_N,
         wal_inserts=WAL_INSERTS, wal_deletes=WAL_DELETES,
-        wal_more=WAL_MORE) -> dict:
+        wal_more=WAL_MORE, shards=SHARDS, shard_slots=SHARD_SLOTS,
+        failing=FAILING, dur_n=DUR_N, dur_shards=DUR_SHARDS,
+        dur_writes=DUR_WRITES, dur_more=DUR_MORE) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
     size; ``sweep_n`` cuts slice 1's depth alone); returns the kernels
     record."""
@@ -265,9 +308,18 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
     served = run_serve(device, card, frozen, mutable, hot=hot, slots=slots,
                        wal_n=wal_n, wal_inserts=wal_inserts,
                        wal_deletes=wal_deletes, wal_more=wal_more)
+    del mutable  # phase 10 holds its own copy of the data on the card
+    gc.collect()
+    sharded = run_sharded(device, card, frozen["x"], frozen["q"], n0=n0,
+                          reps=reps, shards=shards, fresh=fresh,
+                          deletes=deletes, slots=shard_slots,
+                          failing=failing, dur_n=dur_n,
+                          dur_shards=dur_shards, dur_writes=dur_writes,
+                          dur_more=dur_more)
     for rec, phase in ((k1, "5 query"), (k2, "7 stacked f32")):
-        rec["launches_by_phase"] = {phase: rec["launches"],
-                                    "9 serve": served[rec["name"]]}
+        rec["launches_by_phase"] = {
+            phase: rec["launches"], "9 serve": served[rec["name"]],
+            **{ph: n[rec["name"]] for ph, n in sharded.items()}}
         rec["launches"] = sum(rec["launches_by_phase"].values())
     return {"kernels": [k1, k2]}
 
@@ -1113,6 +1165,574 @@ def run_wal(device, card, x, q, *, wal_n, wal_inserts, wal_deletes,
         recovery_seconds=f"{recover_s:.3f}", live=len(live),
         recovered_equals_acked=True, equals_oracle=True, max_abs_err=err,
         routes=eng.stats()["routes"])
+    r.close()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def oracle64(X, G, qn, k: int, device):
+    """The f32 oracle over a live set ``(X, G)`` (points, gids) for the
+    queries ``qn`` on ``device``: ``(dists (B, k+1), gids (B, k+1), a table
+    of the points by gid)`` -- what ``assert_exact_topk`` takes."""
+    import torch
+
+    from repro_torch.core.exact import exact_search
+
+    pts = torch.from_numpy(X).to(device)
+    od, oi = exact_search(pts, qn, k + 1)
+    gid_t = torch.from_numpy(G.astype(np.int64)).to(device)
+    by_gid = torch.zeros((int(G.max()) + 1, X.shape[1]),
+                         dtype=torch.float32, device=device)
+    by_gid[gid_t] = pts
+    return od, gid_t[oi.long()], by_gid
+
+
+def hold64(what, bd, bi, orc, qn, rows=slice(None)):
+    """Hold an answer to the oracle ``orc`` (:func:`oracle64`) through
+    ``assert_exact_topk``: ids at float64 distances against the oracle's
+    k + 1 candidates ranked at float64, each f32 distance within the f32
+    error bound of its float64 value.
+
+    The exchange scores a point by round 1's plain beam or by K2, the
+    oracle by one matmul: three f32 sums in three orders.  At these norms
+    (``S = sum_j |q_j x_j|`` ~ 20 against k-th distances ~1e-5) each is
+    off its float64 value by a few ``u S`` (``u = 2**-24``), so two routes
+    may order points that far apart differently.  Each row's tie tolerance
+    is therefore ``TIE_UNITS u S`` with ``S`` the largest over that row's
+    k + 1 oracle candidates -- the reference's alone, whatever the answer
+    -- and at least the parity atol.  Returns ``(the check's error, the
+    per-row tolerance (B,), readings)``; the readings, in units of ``u S``
+    (the largest answer-to-reference gap, the oracle's and the answer's own
+    f32 errors), and the share of the tolerance used are also in the
+    error's message when the check fails."""
+    import torch
+
+    from repro_torch.core.exact import dists64
+
+    od, ref, by_gid = orc
+    od, ref, q = od[rows], ref[rows], qn[rows]
+    k = ref.shape[1] - 1
+    ids = torch.as_tensor(np.asarray(bi)).to(q.device).long()
+    d64 = dists64(by_gid, q, ids)[0]
+    r64, mag = dists64(by_gid, q, ref)
+    order = torch.argsort(r64, dim=1, stable=True)
+    ranked, r64s = torch.gather(ref, 1, order), torch.gather(r64, 1, order)
+    unit = U32 * mag.amax(1)  # u S per row
+    tol = torch.clamp(TIE_UNITS * unit, min=ATOL)
+    gap = (torch.sort(d64, 1).values - r64s[:, :k]).abs().amax(1)
+    answer = torch.as_tensor(np.asarray(bd)).to(q.device, torch.float64)
+    readings = dict(
+        tie_gap_units=float((gap / unit).max()),
+        tol_used=float((gap / tol).max()),
+        oracle_err_units=float(((od.double() - r64).abs().amax(1)
+                                / unit).max()),
+        answer_err_units=float(((answer - d64).abs().amax(1) / unit).max()),
+        max_tol=float(tol.max()), min_tol=float(tol.min()),
+        kth_median=float(r64s[:, k - 1].median()),
+        f32_oracle_gap=float(np.abs(np.asarray(bd)
+                                    - od[:, :-1].cpu().numpy()).max()))
+    try:
+        err = check(f"{what} vs oracle, float64", bd, bi, ranked, by_gid, q,
+                    exact=True, atol=tol.cpu().numpy())
+    except AssertionError as e:
+        raise AssertionError(f"{e} ({readings})") from None
+    return err, tol.cpu().numpy(), dict(f32_vs_f64_err=err, **readings)
+
+
+def replay_stacked(what, recs, real, k, device):
+    """Each recorded K2 launch against its plain version at the launch's
+    schedule: distances bit for bit, skip counts equal, ids equal apart
+    from exact ties.  Returns (max id-check error, the last launch's
+    live-pair mask, its plain version's ms)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    max_err, live, plain_ms = 0.0, None, None
+    for i, rec in enumerate(recs):
+        kd, ki, ks = real(**rec)
+        (rd, ri, rs, live), plain_ms = timed_call(
+            lambda: ref.stacked_sweep_ref(**rec, return_live=True), device)
+        if not torch.equal(ks, rs):
+            raise AssertionError(f"{what} launch {i}: skip counts differ")
+        if not torch.equal(kd, rd):
+            raise AssertionError(
+                f"{what} launch {i}: distances differ from the plain "
+                f"version's by up to "
+                f"{float((kd - rd).abs().nan_to_num().max())}")
+        rd2 = rd.reshape(-1, k).cpu().numpy()
+        max_err = max(max_err, check(
+            f"{what} launch {i} ids vs plain",
+            kd.reshape(-1, k).cpu().numpy(), ki.reshape(-1, k).cpu().numpy(),
+            rd2, ri.reshape(-1, k).cpu().numpy(), rd2[:, -1],
+            rtol=0.0, atol=0.0))
+    return max_err, live, plain_ms
+
+
+def run_sharded(device, card, x, q, *, n0, reps, shards, fresh, deletes,
+                slots, failing, dur_n, dur_shards, dur_writes,
+                dur_more) -> dict:
+    """Phase 10: the sharded index through the two-round exchange, its
+    kernels checked, timed, served, degraded; then the durable sharded
+    index.  Returns each kernel's launches on the default exchange (the
+    phase's main path) and on the sequential round 2, by run."""
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.core.balltree import normalize_query
+    from repro_torch.core.exact import dists64
+    from repro_torch.kernels import p2h_scan, ref
+    from repro_torch.kernels import stacked_sweep as tss
+    from repro_torch.runtime import RetryPolicy
+    from repro_torch.serve import (DeviceFault, FaultInjector, FaultSpec,
+                                   P2HEngine, ResilienceConfig,
+                                   ShardSupervisor)
+    from repro_torch.serve.lambda_cache import epoch_is_stale
+    from repro_torch.stream import CompactionPolicy, ShardedMutableP2HIndex
+
+    k, n, d = K, len(x), x.shape[1]
+    queries = len(q)
+    seq_queries = min(SEQ_QUERIES, queries)
+    rng = np.random.default_rng(SEED + 4)
+    real_k2, real_k1 = tss.stacked_sweep, p2h_scan.p2h_sweep
+
+    # the index: hashed shards, one sealed segment each, then routed
+    # inserts into the deltas and deletes over every shard
+    t0 = time.perf_counter()
+    m = ShardedMutableP2HIndex.from_data(
+        x, shards, n0=n0, device=device, seed=SEED,
+        policy=CompactionPolicy(delta_capacity=-(-n // shards),
+                                tombstone_frac=0.95, max_segments=32))
+    sync(device)
+    build_s = time.perf_counter() - t0
+    near = x[rng.choice(n, fresh)] + rng.normal(
+        scale=0.05, size=(fresh, d)).astype(np.float32)
+    m.insert_batch(near)
+    dead = set(rng.choice(n, deletes, replace=False).tolist())
+    t0 = time.perf_counter()
+    for g in sorted(dead):
+        if not m.delete(int(g)):
+            raise AssertionError(f"gid {g} was not live")
+    sync(device)
+    delete_s = time.perf_counter() - t0
+    snap = m.snapshot()
+    per = m.stats()["per_shard"]
+    if (len(snap.segments) != shards or snap.delta_live != fresh
+            or any(p["segments"] != 1 for p in per)):
+        raise AssertionError(f"shard layout {per}")
+    log("sharded-data", n=n, shards=shards, live=snap.live_count,
+        delta_rows=snap.delta_live, deleted=deletes,
+        shard_points=",".join(str(p["live"]) for p in per),
+        build_seconds=f"{build_s:.1f}", delete_seconds=f"{delete_s:.2f}",
+        segment_build_seconds=f"{build_s / shards:.1f}")
+
+    qn_np = normalize_query(q)
+    qn = torch.from_numpy(qn_np).to(device)
+    orc = oracle64(*snap.live_points(), qn, k, device)
+    # the float64 k-th of the oracle's k + 1 candidates
+    kth64 = torch.sort(dists64(orc[2], qn, orc[1])[0], 1).values[
+        :, k - 1].cpu().numpy()
+
+    def exact(what, bd, bi, rows=slice(None), oracle=None):
+        """The oracle over the live set (``hold64``), no deleted gid, no
+        empty slot; returns what ``hold64`` returns."""
+        if dead & set(np.asarray(bi).ravel().tolist()):
+            raise AssertionError(f"{what}: a deleted gid was returned")
+        if not np.isfinite(bd).all():
+            raise AssertionError(f"{what}: non-finite distances")
+        return hold64(what, bd, bi, oracle or orc, qn, rows)
+
+    def recorded(fn):
+        """``fn()`` with every K1 and K2 launch counted from 0 and its
+        operands kept; returns (result, K2 records, K1 records, host s)."""
+        k2_recs, k1_recs = [], []
+
+        def k2(*a, **kw):
+            k2_recs.append(kw)
+            return real_k2(*a, **kw)
+
+        def k1(*a, **kw):
+            k1_recs.append(kw)
+            return real_k1(*a, **kw)
+
+        k1.launches = 0
+        sync(device)
+        tss.LAUNCHES = 0
+        tss.stacked_sweep, p2h_scan.p2h_sweep = k2, k1
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            sync(device)
+            host_s = time.perf_counter() - t0
+        finally:
+            tss.stacked_sweep, p2h_scan.p2h_sweep = real_k2, real_k1
+        if tss.LAUNCHES != len(k2_recs) or k1.launches != len(k1_recs):
+            raise AssertionError("a launch went uncounted")
+        for rec in k2_recs:
+            if rec["split"] is None:
+                rec["split"] = tss.default_split(
+                    rec, k=rec["k"], bq=rec["bq"],
+                    probe_dtype=rec.get("probe_dtype", "f32"))
+        for rec in k1_recs:
+            if rec["split"] is None:
+                rec["split"] = p2h_scan.default_split(rec, k=rec["k"],
+                                                      bq=rec["bq"])
+        return out, k2_recs, k1_recs, host_s
+
+    # the main path: the default query, round 2 auto-promoted to the
+    # stack -- one K2 launch, no K1
+    (bd, bi, st, info), main_k2, main_k1, host_s = recorded(
+        lambda: m.query(q, k, return_stats=True, return_info=True))
+    if len(main_k2) != 1 or main_k1:
+        raise AssertionError(f"default query: {len(main_k2)} K2 and "
+                             f"{len(main_k1)} K1 launches (want 1 and 0)")
+    _, tol, rdg = exact("query", bd, bi)
+    # lambda0 and each shard's k-th are f32 distances of real points: each
+    # row held to the float64 k-th at that row's tolerance
+    margin = np.minimum(info["lambda0"] - kth64,
+                        (info["shard_kth"] - kth64[None]).min(0))
+    if (margin < -tol).any():
+        b = int(np.argmin(margin + tol))
+        raise AssertionError(f"row {b}: lambda0 or a shard's k-th under the "
+                             f"float64 k-th by {-margin[b]} (tolerance "
+                             f"{tol[b]})")
+    log("sharded-query", route="default", queries=queries, k=k,
+        equals_oracle=True, **rdg,
+        k2_launches=len(main_k2),
+        k1_launches=0, bq=main_k2[0]["bq"], split=main_k2[0]["split"],
+        lambda0_ge_kth=True,
+        lambda0_min_margin=float((info["lambda0"] - kth64).min()),
+        shard_kth_min_margin=float((info["shard_kth"] - kth64[None]).min()),
+        host_seconds=f"{host_s:.3f}",
+        leaves_scanned=st["leaves_scanned"],
+        tiles_skipped=st["tiles_skipped"], verified=st["verified"])
+    k2_by_route = {"default": main_k2}
+    for name, kw, want in (("stacked-f32", dict(method="stacked"), 1),
+                           ("stacked-bf16", dict(
+                               method="stacked", probe_dtype="bf16",
+                               probe_tiles=tss.STACKED_PROBE_TILES_DEFAULT),
+                            2)):
+        (rd, ri, rst), recs, k1s, host_s = recorded(
+            lambda kw=kw: m.query(q, k, return_stats=True, **kw))
+        if len(recs) != want or k1s:
+            raise AssertionError(f"{name}: {len(recs)} K2 launches (want "
+                                 f"{want}) and {len(k1s)} K1")
+        rdg = exact(name, rd, ri)[2]
+        if not np.array_equal(rd, bd):
+            raise AssertionError(f"{name}: distances differ from the "
+                                 f"default route's")
+        k2_by_route[name] = recs
+        log("sharded-query", route=name, equals_oracle=True,
+            equals_default=True, **rdg, k2_launches=len(recs),
+            host_seconds=f"{host_s:.3f}",
+            tiles_skipped=rst["tiles_skipped"])
+    # the sequential round 2: K1 once per segment, under lambda0
+    (sd, si), _, seq_k1, host_s = recorded(
+        lambda: m.query(q[:seq_queries], k, method="pallas", stacked=False))
+    live_segs = sum(1 for s in snap.segments if s.live)
+    if len(seq_k1) != live_segs:
+        raise AssertionError(f"sequential round 2: {len(seq_k1)} K1 "
+                             f"launches for {live_segs} segments")
+    rdg = exact("sequential", sd, si, rows=slice(0, seq_queries))[2]
+    # each run's launches, counted from 0 just before it
+    launches = {"10 sharded": {"stacked_sweep": len(main_k2),
+                               "p2h_sweep": len(main_k1)},
+                "10 sharded sequential": {"stacked_sweep": 0,
+                                          "p2h_sweep": len(seq_k1)}}
+    rec = seq_k1[0]
+    kd, ki, ks = real_k1(**rec)
+    rd, ri, rs = ref.p2h_sweep_ref(**rec)
+    if not torch.equal(ks, rs):
+        raise AssertionError("sequential K1 launch: skip counts differ")
+    k1_err = check("sequential K1 launch vs plain", kd.cpu(), ki.cpu(),
+                   rd.cpu(), ri.cpu())
+    log("sharded-sequential", queries=seq_queries, equals_oracle=True, **rdg,
+        k1_launches=len(seq_k1), bq=rec["bq"],
+        split=rec["split"], k1_matches_plain=True, k1_max_abs_err=k1_err,
+        k1_bit_equal=bool(torch.equal(kd, rd)),
+        host_seconds=f"{host_s:.3f}")
+
+    # every K2 launch of those runs against its plain version
+    k2_err = 0.0
+    for name, recs in k2_by_route.items():
+        e, live, plain_ms = replay_stacked(f"sharded {name}", recs, real_k2,
+                                           k, device)
+        k2_err = max(k2_err, e)
+        if name == "default":
+            rec2 = recs[0]
+            bytes_ms, ops_ms, pairs = stacked_bound(rec2, live, d + 1)
+            r2_plain_ms = plain_ms
+    log("sharded-kernel", matches_plain=True, launches_replayed=sum(
+        len(r) for r in k2_by_route.values()), max_abs_err=k2_err,
+        shards_in_launch=shards, segments_in_launch=rec2["pts_tiles"].shape[0])
+
+    # timing: a warm exchange batch and its parts
+    timed_ms(lambda: m.query(q, k), 1, device)  # warm
+    batch_ms = timed_ms(lambda: m.query(q, k), 3, device)
+    r1_ms = timed_ms(lambda: [s.query(qn_np, k, method="beam", frac=0.25,
+                                      return_counters=True)
+                              for s in snap.shards], 3, device)
+    parts = [s.query(qn_np, k, method="beam", frac=0.25,
+                     return_counters=True) for s in snap.shards]
+    lam0 = np.minimum.reduce([p[0][:, k - 1] for p in parts])
+    r2_ms = timed_ms(lambda: distributed._stacked_round2(
+        snap.shards, qn_np, k, method="sweep", stacked=None, lam0=lam0,
+        probe_tiles=None), 3, device)
+    (fd, fi), _, _ = distributed._stacked_round2(
+        snap.shards, qn_np, k, method="sweep", stacked=None, lam0=lam0,
+        probe_tiles=None)
+    pd, pi = [p[0] for p in parts] + [fd], [p[1] for p in parts] + [fi]
+    merge_ms = timed_ms(lambda: distributed._merge(pd, pi, k, queries,
+                                                   device), reps, device)
+    k2_ms = timed_ms(lambda: real_k2(**rec2), reps, device)
+    k2_dev_ms = device_ms(lambda: real_k2(**rec2), reps, device,
+                          "stacked_sweep_kernel")
+    log("sharded-timing", card=repr(card), batch_ms=f"{batch_ms:.3f}",
+        round1_ms=f"{r1_ms:.3f}", round2_ms=f"{r2_ms:.3f}",
+        k2_ms=f"{k2_ms:.4f}", k2_device_ms=k2_dev_ms,
+        merge_ms=f"{merge_ms:.4f}",
+        k2_bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
+        k2_bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        k2_plain_ms=f"{r2_plain_ms:.1f}", scanned_pairs=pairs,
+        stacked_route_cell2_ms="26.0 (PERF.md 5)", reps=reps)
+
+    # serving: the engine at each slot size, cold then warm, against the
+    # direct query; launches per batch; q/s and p50/p99.  Four batches a
+    # slot size at most: a batch costs its eight beams, ~1.2 s at any size
+    for slot in slots:
+        nq = min(queries, 4 * slot)
+        qs = q[:nq]
+        eng = P2HEngine(m, slot_size=slot)
+        sync(device)
+        tss.LAUNCHES = 0
+        p2h_scan.p2h_sweep.launches = 0
+        t0 = time.perf_counter()
+        tickets = [eng.submit(row, k) for row in qs]
+        eng.flush()
+        got = [eng.result(t) for t in tickets]
+        sync(device)
+        wall = time.perf_counter() - t0
+        n_k2, n_k1 = tss.LAUNCHES, p2h_scan.p2h_sweep.launches
+        cold = (np.stack([g[0] for g in got]), np.stack([g[1] for g in got]))
+        st_cold = eng.stats()
+        route = next(iter(st_cold["routes"]))
+        # the direct query in the engine's batches: the same shapes, so
+        # the same kernels and sums
+        parts = [m.query(qs[i:i + slot], k, method=route,
+                         stacked=route == "stacked")
+                 for i in range(0, nq, slot)]
+        direct = (np.concatenate([p[0] for p in parts]),
+                  np.concatenate([p[1] for p in parts]))
+        warm = eng.query(qs, k)
+        for tag, (ed, ei) in (("cold", cold), ("warm", warm)):
+            if not np.array_equal(ed, direct[0]):
+                raise AssertionError(f"engine slot {slot} {tag}: distances "
+                                     f"differ from the direct query's")
+            check(f"engine slot {slot} {tag} ids vs direct", ed, ei,
+                  *direct, rtol=0.0, atol=0.0)
+        exact(f"engine slot {slot}", *cold, rows=slice(0, nq))
+        log("sharded-serve", card=repr(card), slot_size=slot, queries=nq,
+            batches=st_cold["batches"], routes=st_cold["routes"],
+            qps=f"{nq / wall:.1f}",
+            p50_ms=f"{st_cold['latency_p50_ms']:.3f}",
+            p99_ms=f"{st_cold['latency_p99_ms']:.3f}",
+            k2_per_batch=f"{n_k2 / st_cold['batches']:g}", k1=n_k1,
+            equals_direct=True, warm_equals_cold=True,
+            cache_hits=eng.cache.stats()["hits"])
+    # a delete of a cached query's k-th neighbour in one shard drops only
+    # that shard's component of the entry
+    victim = int(warm[1][0, k - 1])
+    owner = m.router.shard_of(victim)
+    key = (int(eng.cache.signatures(qn_np[:1])[0]), k)
+    if not m.delete(victim):
+        raise AssertionError(f"gid {victim} was not live")
+    dead.add(victim)
+    floors = m.snapshot().last_delete_epoch
+    tag = eng.cache._store[key][2]
+    stale = [s for s, (e, f) in enumerate(zip(tag, floors))
+             if epoch_is_stale(e, f)]
+    if stale != [owner]:
+        raise AssertionError(f"stale components {stale}, want [{owner}]")
+    evict0 = eng.cache.stale_evictions
+    after = eng.query(q, k)
+    rdg = exact("engine after the delete", *after,
+               oracle=oracle64(*m.snapshot().live_points(), qn, k, device))[2]
+    log("sharded-serve-epoch", deleted=victim, owner_shard=owner,
+        stale_components=stale, surviving_components=shards - 1,
+        stale_evictions=eng.cache.stale_evictions - evict0,
+        equals_oracle=True, **rdg)
+
+    # degraded answers: failing shards, no wall-clock budget
+    snap = m.snapshot()
+    for fail in failing:
+        sup = ShardSupervisor(ResilienceConfig(
+            shard_timeout_s=None, breaker_failures=99,
+            fault_injector=FaultInjector(
+                {s: [FaultSpec("error")] for s in fail}),
+            retry=RetryPolicy(max_restarts=0)))
+        sync(device)
+        tss.LAUNCHES = p2h_scan.p2h_sweep.launches = 0
+        t0 = time.perf_counter()
+        # a shard failing in round 1 is left out of round 2's one K2
+        # launch over the others, then fails again on its own
+        gd, gi, ginfo = m.query(q, k, return_info=True, resilience=sup)
+        sync(device)
+        sec = time.perf_counter() - t0
+        n_k2, n_k1 = tss.LAUNCHES, p2h_scan.p2h_sweep.launches
+        if (ginfo["missing_shards"] != tuple(fail) or not ginfo["degraded"]
+                or ginfo["complete"]):
+            raise AssertionError(f"degraded {fail}: {ginfo}")
+        if (n_k2, n_k1) != (1, 0):
+            raise AssertionError(f"degraded {fail}: {n_k2} K2 and {n_k1} K1 "
+                                 f"launches (want 1 and 0)")
+        Xs, Gs = zip(*(s.live_points() for si, s in enumerate(snap.shards)
+                       if si not in fail))
+        rdg = exact(f"degraded {fail} vs the live shards", gd, gi,
+                   oracle=oracle64(np.concatenate(Xs), np.concatenate(Gs),
+                                   qn, k, device))[2]
+        log("sharded-degraded", failing=list(fail),
+            missing_shards=list(ginfo["missing_shards"]), degraded=True,
+            complete=False, equals_live_oracle=True, **rdg, k2_launches=n_k2,
+            k1_launches=n_k1, host_seconds=f"{sec:.3f}")
+    # a K2 launch that fails is no shard's fault: the armed exchange raises
+    # it, and answers no shard by the plain sweep instead
+    def broken(*a, **kw):
+        raise RuntimeError("K2 launch refused")
+
+    tss.stacked_sweep = broken
+    try:
+        m.query(q[:64], k, resilience=ShardSupervisor(ResilienceConfig(
+            shard_timeout_s=None, retry=RetryPolicy(max_restarts=0))))
+        raise AssertionError("a failing K2 launch gave an answer")
+    except DeviceFault as e:
+        if "K2 launch refused" not in str(e):
+            raise
+    finally:
+        tss.stacked_sweep = real_k2
+    log("sharded-degraded", failing_kernel="stacked_sweep",
+        raised="DeviceFault")
+    m.close()
+    del m, snap, orc
+    gc.collect()
+    run_sharded_wal(device, card, x, q, n0=n0, dur_n=dur_n,
+                    dur_shards=dur_shards, dur_writes=dur_writes,
+                    dur_more=dur_more)
+    return launches
+
+
+def run_sharded_wal(device, card, x, q, *, n0, dur_n, dur_shards,
+                    dur_writes, dur_more) -> None:
+    """Phase 10, durable: a sharded index with per-shard logs; the
+    acknowledged writes survive a split, a merge, a save, more writes and
+    a drop, and ``open`` recovers exactly them.  Host I/O times."""
+    import threading
+
+    import torch
+
+    from repro_torch.core.balltree import normalize_query
+    from repro_torch.stream import (CompactionPolicy, ShardedMutableP2HIndex,
+                                    WalConfig)
+
+    k = K
+    root = BUILD / "chip_smoke_sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    acked = set()
+
+    def on_ack(tokens):
+        acked.update(tokens)
+
+    t0 = time.perf_counter()
+    w = ShardedMutableP2HIndex.from_data(
+        x[:dur_n], dur_shards, n0=n0, device=device, seed=SEED,
+        wal_dir=str(root / "wal"), ckpt_root=str(root),
+        wal_config=WalConfig(), on_ack=on_ack,
+        policy=CompactionPolicy(delta_capacity=4 * sum(dur_writes + dur_more),
+                                tombstone_frac=0.95, max_segments=32))
+    build_s = time.perf_counter() - t0
+    d = x.shape[1]
+    live, issued = set(range(dur_n)), []
+
+    def writes(n_ins, n_del, seed):
+        r = np.random.default_rng(seed)
+        pts = (x[r.choice(dur_n, n_ins)] + r.normal(
+            scale=0.05, size=(n_ins, d))).astype(np.float32)
+        new = [w.insert(p) for p in pts]
+        issued.extend(("ins", g) for g in new)
+        live.update(new)
+        for g in r.choice(sorted(live), n_del, replace=False):
+            if not w.delete(int(g)):
+                raise AssertionError(f"gid {g} was not live")
+            issued.append(("del", int(g)))
+            live.discard(int(g))
+        for sh in w.shards:
+            sh._wal.commit(force=True)
+
+    writes(*dur_writes, SEED + 6)
+    qs = q[:64]
+    qn = torch.from_numpy(normalize_query(qs)).to(device)
+
+    def oracle_of(index):
+        return oracle64(*index.snapshot().live_points(), qn, k, device)
+
+    before = oracle_of(w)
+    errors, done, seen = [], threading.Event(), [0]
+
+    def storm():  # queries while the split migrates rows
+        try:
+            while not done.is_set():
+                hold64("query during the split", *w.query(qs, k), before,
+                       qn)
+                seen[0] += 1
+        except BaseException as e:  # surfaced after join
+            errors.append(e)
+
+    th = threading.Thread(target=storm)
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        new = w.split_shard(0)
+    finally:
+        done.set()
+        th.join()
+    split_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    owned = [len(sh.live_gids()) for sh in w.shards]
+    hold64("after the split", *w.query(qs, k), before, qn)
+    t0 = time.perf_counter()
+    w.merge_shards(new, 0)
+    merge_s = time.perf_counter() - t0
+    hold64("after the merge", *w.query(qs, k), before, qn)
+    t0 = time.perf_counter()
+    w.save(str(root))
+    save_s = time.perf_counter() - t0
+    writes(*dur_more, SEED + 7)
+    missing = [t for t in issued if t not in acked]
+    if missing:
+        raise AssertionError(f"{len(missing)} writes never acknowledged")
+    if set(int(g) for sh in w.shards for g in sh.live_gids()) != live:
+        raise AssertionError("the live set before the drop is not the "
+                             "acknowledged one")
+    del w  # dropped without a close: the logs hold every acknowledgement
+    gc.collect()
+    t0 = time.perf_counter()
+    r = ShardedMutableP2HIndex.open(str(root), device=device)
+    sync(device)
+    recover_s = time.perf_counter() - t0
+    per = [set(int(g) for g in sh.live_gids()) for sh in r.shards]
+    got = set().union(*per)
+    if got != live or sum(len(s) for s in per) != len(live):
+        raise AssertionError(f"recovered {len(got)} live gids, "
+                             f"{len(got ^ live)} differ from the "
+                             f"acknowledged {len(live)}")
+    rdg = hold64("recovered", *r.query(qs, k), oracle_of(r), qn)[2]
+    log("sharded-wal", card=repr(card), clock="host I/O", points=dur_n,
+        shards=dur_shards, writes=len(issued), acknowledged=len(issued),
+        build_seconds=f"{build_s:.2f}", split_seconds=f"{split_s:.2f}",
+        queries_during_split=seen[0], owned_after_split=owned,
+        merge_seconds=f"{merge_s:.2f}", save_seconds=f"{save_s:.2f}",
+        recovery_seconds=f"{recover_s:.3f}", recovered_shards=r.num_shards,
+        live=len(live), recovered_equals_acked=True, equals_oracle=True,
+        **rdg, misroutes=r.stats()["misroutes"])
     r.close()
     shutil.rmtree(root, ignore_errors=True)
 

@@ -23,7 +23,7 @@ def topk_smallest(dists, ids, k: int):
 
 
 def assert_topk_close(d, i, ref_d, ref_i, kth_next=None, *,
-                      rtol: float = 1e-5, atol: float = 1e-6) -> float:
+                      rtol: float = 1e-5, atol=1e-6) -> float:
     """Hold a top-k answer ``(d, i)`` to a reference ``(ref_d, ref_i)``,
     both (B, k) and sorted ascending; returns the largest absolute distance
     error, raises ``AssertionError`` on a mismatch.
@@ -33,19 +33,22 @@ def assert_topk_close(d, i, ref_d, ref_i, kth_next=None, *,
     stand anywhere among the reference's entries whose distance ties its
     own within that tolerance, and is free where the reference's k-th
     distance ties the (k+1)-th, ``kth_next`` (B,), when that is given.
+    ``atol`` is a scalar or one tolerance per row, (B,).
     """
     d, i, ref_d, ref_i = (np.asarray(a) for a in (d, i, ref_d, ref_i))
+    atol = np.broadcast_to(np.asarray(atol, np.float64).reshape(-1),
+                           (d.shape[0],))
     with np.errstate(invalid="ignore"):  # inf - inf where both are +inf
         err = np.where(np.isinf(d) & np.isinf(ref_d), 0.0,
                        np.abs(d - ref_d))
-    if not np.allclose(d, ref_d, rtol=rtol, atol=atol):
+    if not np.allclose(d, ref_d, rtol=rtol, atol=atol[:, None]):
         raise AssertionError(f"distances differ: max abs error "
                              f"{float(err.max())}")
     for b in np.nonzero((i != ref_i).any(axis=1))[0]:
         near = np.isclose(ref_d[b][:, None], ref_d[b][None, :],
-                          rtol=rtol, atol=atol)
+                          rtol=rtol, atol=atol[b])
         boundary = kth_next is not None and np.isclose(
-            ref_d[b, -1], kth_next[b], rtol=rtol, atol=atol)
+            ref_d[b, -1], kth_next[b], rtol=rtol, atol=atol[b])
         for j in np.nonzero(i[b] != ref_i[b])[0]:
             if (boundary and near[j, -1]) or i[b, j] in ref_i[b][near[j]]:
                 continue
@@ -65,7 +68,7 @@ def dists64(points, queries, ids):
 
 
 def assert_exact_topk(d, i, ref_i, points, queries, *, rtol: float = 1e-5,
-                      atol: float = 1e-6) -> float:
+                      atol=1e-6) -> float:
     """Hold an exact route's f32 answer ``(d, i)`` (B, k) to an oracle's
     top-(k+1) ids ``ref_i`` (B, k+1); returns the largest ``|d - d64|``,
     raises ``AssertionError`` on a mismatch.
@@ -79,7 +82,8 @@ def assert_exact_topk(d, i, ref_i, points, queries, *, rtol: float = 1e-5,
         gives the boundary tie).  The same id then has the same distance on
         both sides, whatever order either side's f32 sums ran in, so a
         dropped true neighbour fails once its distance stands more than the
-        tolerance from its replacement's;
+        tolerance from its replacement's (``atol`` a scalar or one per
+        row);
       * each returned f32 distance must lie within the forward error bound
         of an f32 dot product of length d in any summation order,
         ``gamma_d * sum_j |q_j x_j|`` with ``gamma_d = d u / (1 - d u)``,

@@ -31,19 +31,22 @@ Lambda cache (lambda_cache.py)
 Resilience (resilience.py)
     Deadlines, admission control (``QueryRejected``), the shard
     supervisor (timeouts, circuit breakers, hedging) and a deterministic
-    ``FaultInjector``.  The supervisor's exchange path waits for the
-    sharded index (ROADMAP.md, queue 1, item 10).
+    ``FaultInjector``.  The supervisor runs the degraded-capable
+    two-round exchange of a sharded mutable index: a failing shard's
+    answer is dropped whole, and the rest is exact over the live shards
+    (``missing_shards``, ``complete``).
 """
 from repro_torch.serve.batcher import MicroBatch, MicroBatcher, Request
 from repro_torch.serve.dispatch import DispatchPolicy, Route
 from repro_torch.serve.engine import P2HEngine
 from repro_torch.serve.lambda_cache import LambdaCache
 from repro_torch.serve.resilience import (CircuitBreaker, Deadline,
-                                          FaultError, FaultInjector,
+                                          DeviceFault, FaultError,
+                                          FaultInjector,
                                           FaultSpec, QueryRejected,
                                           ResilienceConfig, ShardSupervisor)
 
 __all__ = ["P2HEngine", "DispatchPolicy", "Route", "LambdaCache",
            "MicroBatcher", "MicroBatch", "Request", "Deadline",
-           "CircuitBreaker", "FaultError", "FaultInjector", "FaultSpec",
+           "CircuitBreaker", "DeviceFault", "FaultError", "FaultInjector", "FaultSpec",
            "QueryRejected", "ResilienceConfig", "ShardSupervisor"]

@@ -1,9 +1,12 @@
 """P2HEngine: micro-batched, auto-dispatched, lambda-warm P2HNNS serving.
 
-Composes the three serve-layer pieces over a built :class:`P2HIndex` or a
-mutable :class:`repro_torch.stream.MutableP2HIndex` -- in the mutable case
-every micro-batch pins one epoch-numbered snapshot and the lambda cache is
-epoch-tagged (see ``lambda_cache``):
+Composes the three serve-layer pieces over a built :class:`P2HIndex`, a
+mutable :class:`repro_torch.stream.MutableP2HIndex` or a sharded mutable
+:class:`repro_torch.stream.ShardedMutableP2HIndex` -- in the mutable cases
+every micro-batch pins one epoch-numbered snapshot (an epoch *vector* pin
+across shards for the sharded index, served through the two-round lambda
+exchange) and the lambda cache is epoch-tagged per shard (see
+``lambda_cache``):
 
   * :class:`~repro_torch.serve.batcher.MicroBatcher` -- fixed-shape slot
     batches;
@@ -18,15 +21,15 @@ cache and results are host numpy.  Each batch's queries go to the index's
 device once, and its answers and counters come back once.  On a CUDA
 device the batched exact route is ``"pallas"``, the CUDA sweep kernel
 (``kernels/csrc/p2h_sweep.cu``); a mutable snapshot's ``"stacked"`` route
-launches the stacked kernel (``kernels/csrc/stacked_sweep.cu``).  The route
-keeps the JAX package's name ``"pallas"`` in ``Route.method`` and
-``stats()["routes"]``; ``method="kernel"`` forces the same route.
+launches the stacked kernel (``kernels/csrc/stacked_sweep.cu``), and so
+does round 2 of a sharded snapshot's exchange, once for every shard's
+segments.  The route keeps the JAX package's name ``"pallas"`` in
+``Route.method`` and ``stats()["routes"]``; ``method="kernel"`` forces the
+same route.
 
-Not ported yet (ROADMAP.md, queue 1, item 10), each refused with
-``NotImplementedError``: a sharded index (``sharded=``, the ``"sharded"``
-route, a sharded mutable front-end) and with it the resilient two-round
-exchange and the serving mesh.  The port's snapshots carry no mesh, so
-every batch runs as one program.
+Not ported yet (ROADMAP.md, queue 1, item 12), each refused with
+``NotImplementedError``: the frozen device-sharded forest (``sharded=``,
+the ``"sharded"`` route) and a serving mesh of more than one device.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 
 from repro_torch.core import search
 from repro_torch.core.balltree import normalize_query
+from repro_torch.parallel.sharding import MULTI_DEVICE_LATER, mesh_devices
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.serve.dispatch import HOST_SMALL_BATCH, DispatchPolicy, Route
 from repro_torch.serve.lambda_cache import LambdaCache
@@ -52,9 +56,9 @@ __all__ = ["P2HEngine"]
 _META_COMPLETE = {"complete": True, "degraded": False, "shed": False,
                   "missing_shards": ()}
 
-_SHARDED_LATER = ("sharded serving (the two-round exchange, its resilient "
-                  "path and the serving mesh) is not ported yet (ROADMAP.md, "
-                  "queue 1, item 10)")
+_SHARDED_LATER = ("the device-sharded forest (ShardedP2HIndex: sharded= and "
+                  "the 'sharded' route) is not ported yet (ROADMAP.md, queue "
+                  "1, item 12: multi-device)")
 
 
 class P2HEngine:
@@ -72,10 +76,15 @@ class P2HEngine:
     only ever supplies *valid* caps, see ``lambda_cache``).
 
     ``resilience`` (a :class:`repro_torch.serve.resilience.ResilienceConfig`)
-    arms per-request deadlines (``deadline_s=`` on submit/query), the
-    shedding of batches whose every member's deadline expired in the queue,
-    and ``max_pending`` admission control with
-    :class:`~repro_torch.serve.resilience.QueryRejected`.
+    arms the read-path resilience layer: per-request deadlines
+    (``deadline_s=`` on submit/query) propagate into per-shard budgets of
+    a sharded index's exchange, shard timeouts and errors degrade to
+    exact-over-live-shards answers (``result_meta`` / ``return_meta=True``
+    expose ``missing_shards`` and ``complete``), per-shard circuit breakers
+    fast-fail wedged shards, batches whose every member's deadline expired
+    in the queue are shed, and ``max_pending`` sheds at admission with
+    :class:`~repro_torch.serve.resilience.QueryRejected`.  Left at None the
+    engine runs the plain path bit for bit.
     """
 
     def __init__(self, index, *, sharded=None, slot_size: int = 8,
@@ -84,12 +93,15 @@ class P2HEngine:
                  resilience: ResilienceConfig | None = None):
         from repro_torch.core.api import P2HIndex
         from repro_torch.stream.mutable import MutableP2HIndex
+        from repro_torch.stream.sharded import ShardedMutableP2HIndex
 
-        if sharded is not None or hasattr(index, "shards"):
+        if sharded is not None:
             raise NotImplementedError(_SHARDED_LATER)
-        if isinstance(index, MutableP2HIndex):
-            # update-aware serving: every micro-batch pins one snapshot,
-            # lambda-cache entries are epoch-tagged (see lambda_cache)
+        self._sharded_mutable = isinstance(index, ShardedMutableP2HIndex)
+        if isinstance(index, MutableP2HIndex) or self._sharded_mutable:
+            # update-aware serving: every micro-batch pins one snapshot (an
+            # epoch *vector* pin for the sharded index), lambda-cache
+            # entries are epoch-tagged (see lambda_cache)
             self.mutable = index
             self.index = None
             d = index.d
@@ -109,8 +121,9 @@ class P2HEngine:
                 np.linalg.norm(tree.centers[0].cpu().numpy())
                 + float(tree.radii[0]))
         else:
-            raise TypeError(f"P2HEngine serves a P2HIndex or a "
-                            f"MutableP2HIndex, not {type(index).__name__}")
+            raise TypeError(f"P2HEngine serves a P2HIndex, a "
+                            f"MutableP2HIndex or a ShardedMutableP2HIndex, "
+                            f"not {type(index).__name__}")
         self.device = torch.device(device)
         self.policy = self.resolve_policy(policy or DispatchPolicy(),
                                           self.device)
@@ -130,6 +143,12 @@ class P2HEngine:
         self._latencies_s: list[float] = []
         self._batches = 0
         self._queries_served = 0
+        # placement generation (sharded index): every batch pins the
+        # router version its snapshot was routed under, so a live
+        # split/merge shows as a version transition here -- cap soundness
+        # across it is the lambda cache's epoch-vector length check
+        self._router_version = None
+        self._router_transitions = 0
 
     @staticmethod
     def resolve_policy(policy: DispatchPolicy, device) -> DispatchPolicy:
@@ -187,7 +206,8 @@ class P2HEngine:
 
     def result_meta(self, ticket: int) -> dict:
         """Degradation metadata for a served-but-not-yet-popped ticket:
-        ``complete``, ``missing_shards``, ``degraded``, ``shed``."""
+        ``complete`` (False iff a missing shard could hold a closer
+        point), ``missing_shards``, ``degraded``, ``shed``."""
         return self._meta.get(ticket, _META_COMPLETE)
 
     # ------------------------------------------------------------------
@@ -201,8 +221,10 @@ class P2HEngine:
 
         ``method`` forces a dispatch route (None = auto; ``"kernel"`` is
         the ``"pallas"`` route).  ``deadline_s`` bounds the whole call's
-        latency budget (shared by every row); ``return_meta=True`` appends
-        the per-batch metadata (see :meth:`result_meta`)."""
+        latency budget (shared by every row); with the resilience layer
+        armed, shards of a sharded index that cannot answer in time
+        degrade the result instead of stalling it.  ``return_meta=True``
+        appends the per-batch metadata (see :meth:`result_meta`)."""
         deadline = (Deadline.after(deadline_s)
                     if deadline_s is not None else None)
         if deadline is not None and deadline.expired:
@@ -233,6 +255,7 @@ class P2HEngine:
     # execution
     # ------------------------------------------------------------------
     def _execute(self, mb, *, method: str | None = None):
+        deadline = mb.deadline
         if (mb.deadlines and all(d is not None and d.expired
                                  for d in mb.deadlines)):
             # every member's budget burned while queued: shed the batch
@@ -254,11 +277,26 @@ class P2HEngine:
             method = "pallas"
         if method == "sharded":
             raise NotImplementedError(_SHARDED_LATER)
+        # resilient exchange iff this batch carries a deadline or the
+        # engine was armed -- otherwise the plain path, bit for bit
+        resilient = (self._sharded_mutable
+                     and (self._supervisor is not None
+                          or deadline is not None))
+        if resilient and self._supervisor is None:
+            # deadline on an unarmed engine: default supervision, kept so
+            # breaker state and counters persist across batches
+            self._supervisor = ShardSupervisor()
         # pin one consistent view for the whole micro-batch: concurrent
         # inserts/deletes publish new snapshots, this batch never sees them
         snap = self.mutable.snapshot() if self.mutable is not None else None
-        if getattr(snap, "mesh", None) is not None:
-            raise NotImplementedError(_SHARDED_LATER)
+        if mesh_devices(getattr(snap, "mesh", None)) > 1:
+            raise NotImplementedError(MULTI_DEVICE_LATER)
+        if snap is not None and self._sharded_mutable:
+            rv = getattr(snap, "router_version", 0)
+            if self._router_version is not None \
+                    and rv != self._router_version:
+                self._router_transitions += 1
+            self._router_version = rv
         fanout = (len(snap.segments) + len(snap.deltas)) if snap else 1
         if snap is not None:
             from repro_torch.kernels.stacked_sweep import tile_density
@@ -286,9 +324,13 @@ class P2HEngine:
                                    tile_density=density))
         # warm start: valid caps only for exact routes (a cap bounds the
         # *exact* k-th distance; applying it to a budgeted beam could prune
-        # candidates the direct beam would have returned)
+        # candidates the direct beam would have returned) ... and never for
+        # the resilient exchange: the cache's caps bound the *full*-set
+        # k-th, which can undercut the live-shard-restricted k-th a
+        # degraded answer must match
         caps = None
-        if self.cache is not None and route.method != "beam":
+        if self.cache is not None and route.method != "beam" \
+                and not resilient:
             if snap is not None:
                 # inserts may have grown max ||x||; the cap formula needs
                 # the current bound (monotone, so only ever grows)
@@ -303,7 +345,28 @@ class P2HEngine:
             if np.isfinite(c).any():
                 caps = c
         t0 = time.perf_counter()
-        if snap is not None:
+        shard_kth = None
+        meta = None
+        degraded = False
+        if snap is not None and self._sharded_mutable:
+            # epoch-vector pin: the two-round exchange also reports each
+            # shard's local k-th bound for per-shard cache components
+            bd, bi, cnt, info = snap.query(
+                mb.queries, mb.k, method=route.method, frac=route.frac,
+                lambda_cap=caps, return_counters=True, return_info=True,
+                stacked=route.method == "stacked",
+                probe_tiles=route.probe_tiles,
+                probe_dtype=route.probe_dtype,
+                deadline=deadline if resilient else None,
+                resilience=self._supervisor if resilient else None)
+            shard_kth = info["shard_kth"]  # (S, B)
+            degraded = bool(info.get("degraded", False))
+            if resilient:
+                meta = {"complete": bool(info.get("complete", True)),
+                        "degraded": degraded, "shed": False,
+                        "missing_shards": tuple(
+                            info.get("missing_shards", ()))}
+        elif snap is not None:
             # the policy (not the snapshot's fan-out default) owns the
             # stacked decision on the engine path, so route stats stay
             # truthful about which schedule ran
@@ -319,12 +382,21 @@ class P2HEngine:
 
         for slot, ticket in enumerate(mb.tickets):
             self._results[ticket] = (bd[slot], bi[slot])
-        if self.cache is not None:
+            if meta is not None:
+                self._meta[ticket] = meta
+        # a degraded batch's per-shard k-ths are restricted-set bounds with
+        # +inf rows for the missing shards: skip the cache update entirely
+        if self.cache is not None and not degraded:
             live = slice(0, mb.occupancy)
-            self.cache.update(
-                mb.queries[live], mb.k, bd[live, mb.k - 1],
-                epoch=snap.epoch if snap else 0,
-                min_epoch=snap.last_delete_epoch if snap else 0)
+            if shard_kth is not None:
+                self.cache.update_sharded(
+                    mb.queries[live], mb.k, shard_kth.T[live],
+                    epoch=snap.epoch, min_epoch=snap.last_delete_epoch)
+            else:
+                self.cache.update(
+                    mb.queries[live], mb.k, bd[live, mb.k - 1],
+                    epoch=snap.epoch if snap else 0,
+                    min_epoch=snap.last_delete_epoch if snap else 0)
         # stats
         self._route_counts[route.method] = (
             self._route_counts.get(route.method, 0) + 1)
@@ -395,6 +467,9 @@ class P2HEngine:
         }
         if self.cache is not None:
             out["lambda_cache"] = self.cache.stats()
+        if self._router_version is not None:
+            out["router_version"] = self._router_version
+            out["router_transitions"] = self._router_transitions
         admission = getattr(self.mutable, "admission_stats", None)
         if callable(admission):
             # write-admission counters (seals/stalls/pending) from the
@@ -410,6 +485,9 @@ class P2HEngine:
         res["shed_deadline"] = self._shed["deadline"]
         res["shed_expired_batches"] = self._shed["expired_batches"]
         out["resilience"] = res
+        if self._sharded_mutable:
+            # router-drift tripwire: deletes whose gid no shard owned
+            out["misroutes"] = self.mutable.misroutes
         return out
 
     def reset_stats(self):

@@ -55,9 +55,8 @@ snapshot per micro-batch and threads ``snapshot.last_delete_epoch`` /
 mutating index stays exact (regression-tested in tests/test_torch_serve.py).
 
 **Epoch vectors (sharded mutable indexes).**  Against a
-sharded mutable index (not ported yet: ROADMAP.md, queue 1, item 10;
-the cache keeps the scheme so the port's will plug in) every shard publishes its
-own epoch, and a served batch pins an epoch *vector* (one component per
+sharded mutable index (:class:`repro_torch.stream.ShardedMutableP2HIndex`)
+every shard publishes its own epoch, and a served batch pins an epoch *vector* (one component per
 shard).  A *merged* global k-th would be invalidated by a delete in any
 shard, so sharded entries instead store **per-shard** local k-th bounds
 ``lam_s``, each tagged with its shard's epoch.  Any one shard's local

@@ -8,11 +8,10 @@ min over the responding shards' round-1 k-ths is still a valid upper
 bound for the surviving shard set), so a query that loses a shard can
 return the **exact** answer over the live shards instead of an error.
 This module supplies the mechanisms; the policy lives in the two-round
-exchange's degraded branch (not ported yet: ROADMAP.md, queue 1, item 10)
-and :class:`repro_torch.serve.engine.P2HEngine` (admission control).  Until
-the sharded exchange lands, the engine uses the deadlines, the admission
-control and the expired-batch shedding; the supervisor is complete and
-tested on its own.
+exchange's degraded branch (:func:`repro_torch.core.distributed.
+two_round_exchange` with ``deadline=``/``resilience=``) and
+:class:`repro_torch.serve.engine.P2HEngine` (deadline propagation into
+per-shard budgets, admission control, expired-batch shedding).
 
 Pieces:
 
@@ -62,13 +61,21 @@ from repro_torch.runtime.fault_tolerance import (RetryPolicy, StepWatchdog,
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Deadline", "CircuitBreaker", "FaultError", "FaultInjector",
+__all__ = ["Deadline", "CircuitBreaker", "DeviceFault", "FaultError",
+           "FaultInjector",
            "FaultSpec", "QueryRejected", "ResilienceConfig",
            "ShardSupervisor", "RESILIENCE_COUNTERS"]
 
 
 class FaultError(RuntimeError):
     """An injected (or injected-equivalent) shard-backend failure."""
+
+
+class DeviceFault(RuntimeError):
+    """A failure of the device or a kernel that every shard shares (a
+    build or launch error of one launch over several shards' segments):
+    no shard's fault, so :class:`ShardSupervisor` raises it rather than
+    degrading around a shard."""
 
 
 class QueryRejected(RuntimeError):
@@ -375,7 +382,8 @@ class ShardSupervisor:
         under supervision; returns ``(ok, value, reason)`` with reason
         in {"ok", "timeout", "error", "breaker_open", "deadline"}.
         Never raises on backend failure -- bounded degradation is the
-        caller's contract."""
+        caller's contract -- but raises a :class:`DeviceFault`, which is
+        no shard's."""
         ids = tuple(int(s) for s in shard_ids)
         self.count("calls")
         admitted = []
@@ -407,9 +415,13 @@ class ShardSupervisor:
             return [self.call(ids, fn, deadline=deadline)
                     for ids, fn in items]
         out = [None] * len(items)
+        raised = []
 
         def run(i, ids, fn):
-            out[i] = self.call(ids, fn, deadline=deadline)
+            try:
+                out[i] = self.call(ids, fn, deadline=deadline)
+            except DeviceFault as e:
+                raised.append(e)
 
         threads = [threading.Thread(target=run, args=(i, ids, fn),
                                     daemon=True)
@@ -418,6 +430,8 @@ class ShardSupervisor:
             t.start()
         for t in threads:
             t.join()
+        if raised:
+            raise raised[0]
         return out
 
     # ------------------------------------------------------------------
@@ -494,6 +508,10 @@ class ShardSupervisor:
                         step = self._steps
                     self.straggler.record(step, time.monotonic() - t0)
                     return True, val, "ok"
+                if isinstance(exc, DeviceFault):
+                    for si in ids:  # no verdict on any shard
+                        self.breaker(si).abandon()
+                    raise exc
                 retryable = self.cfg.retry.retryable(exc)
                 if inflight > 0:
                     continue  # a hedge is still racing; let it finish

@@ -19,13 +19,25 @@ BC-Tree with inline or background compaction and atomic snapshots.
     (``on_ack`` fires after the fsync) survives a crash; recovery is the
     newest checkpoint plus an idempotent replay of the log's tail.  The
     JAX package's byte format.
+``ShardedMutableP2HIndex`` / ``HashRouter`` (sharded.py)
+    Independent mutable shards behind a gid router, queried through the
+    two-round lambda exchange on one device (``ShardedSnapshot``, an
+    epoch-vector pin); per-shard logs and checkpoints under one manifest.
+``VersionedRouter`` / ``MigrationJournal`` (resharding.py)
+    Live ``split_shard`` / ``merge_shards`` under a journaled slot map.
 """
 from repro_torch.stream.compaction import CompactionPlan, CompactionPolicy
 from repro_torch.stream.delta import DeltaBuffer
 from repro_torch.stream.mutable import MutableP2HIndex
-from repro_torch.stream.snapshot import DeltaView, Segment, Snapshot
+from repro_torch.stream.resharding import (MigrationJournal, VersionedRouter,
+                                           plan_merge, plan_split)
+from repro_torch.stream.sharded import HashRouter, ShardedMutableP2HIndex
+from repro_torch.stream.snapshot import (DeltaView, Segment, ShardedSnapshot,
+                                         Snapshot)
 from repro_torch.stream.wal import ShardWal, WalConfig
 
 __all__ = ["MutableP2HIndex", "Snapshot", "Segment", "DeltaView",
            "DeltaBuffer", "CompactionPolicy", "CompactionPlan",
-           "ShardWal", "WalConfig"]
+           "ShardWal", "WalConfig", "ShardedMutableP2HIndex",
+           "ShardedSnapshot", "HashRouter", "VersionedRouter",
+           "MigrationJournal", "plan_split", "plan_merge"]

@@ -33,6 +33,7 @@ the JAX package's: a log either package writes replays in the other.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -117,6 +118,15 @@ class MutableP2HIndex:
         self._wal = None
         self.last_saved_wal = None  # (wal_offset, wal_seq) of last save
         self._wal_replayed_seq = 0  # highest seq wal_replay applied
+        #: optional callable(prebuilt StackedLeaves) the compactor runs
+        #: during its pre-publish warmup -- the sharded front-end hooks
+        #: this to also prepare the cross-shard round-2 stack
+        self._warmup_hook = None
+        #: optional threading.Lock shared by every shard of a sharded
+        #: front-end: held from the pre-publish warmup through the epoch
+        #: flip, it serialises concurrent shard publishes so each warmup
+        #: predicts the cross-shard composition it publishes into
+        self._publish_gate = None
 
         self._background = bool(background)
         self._stop = False
@@ -562,14 +572,28 @@ class MutableP2HIndex:
                 # _pending_tombstones (re-applied by gid at publish)
                 self._collect_pinned_rows(pin)
                 built = self._build_segment(pin)
-                prepub = self._prewarm_publish(pin, built)
-                with self._lock:
-                    self._publish_compaction_locked(pin, built,
-                                                    prepub=prepub)
-                    if self._plan_locked():
-                        # seals (or churn) accumulated meanwhile: drain
-                        self._compact_event.set()
-                    self._cond.notify_all()
+                # the gate (shared across a sharded front-end's shards)
+                # makes warm-then-flip atomic against the other shards'
+                # publishes
+                gate = self._publish_gate or contextlib.nullcontext()
+                with gate:
+                    prepub = self._prewarm_publish(pin, built)
+                    with self._lock:
+                        self._publish_compaction_locked(pin, built,
+                                                        prepub=prepub)
+                        if self._plan_locked():
+                            # seals (or churn) accumulated meanwhile: drain
+                            self._compact_event.set()
+                        self._cond.notify_all()
+                # post-publish re-warm (outside the gate): ungated
+                # publishes -- deletes, seals -- may have raced the warmup
+                hook = self._warmup_hook
+                if hook is not None and prepub is not None \
+                        and prepub.get("stacked") is not None:
+                    try:
+                        hook(prepub["stacked"])
+                    except Exception:
+                        pass
             except BaseException as e:
                 # never die wedged: writers blocked on _compacting would
                 # hang forever.  Pinned buffers stay in _sealed (queryable)
@@ -639,9 +663,13 @@ class MutableP2HIndex:
         """Off the lock, before the background publish flips the epoch:
         stack the predicted post-publish segment set, record the recent
         query templates against it (:func:`repro_torch.kernels.
-        stacked_sweep.warm_stacked`), and prebuild the new segment's
-        locator entries, so the publish's lock hold is one dict update.
-        Best-effort: a failure only means the first query stacks lazily."""
+        stacked_sweep.warm_stacked`, or the sharded front-end's
+        ``_warmup_hook``, which prepares the cross-shard stack instead),
+        record the exchange's round-1 templates against the new tree
+        (:func:`repro_torch.core.distributed.warm_round1`), and prebuild
+        the new segment's locator entries, so the publish's lock hold is
+        one dict update.  Best-effort: a failure only means the first
+        query stacks lazily."""
         try:
             from repro_torch.kernels.stacked_sweep import (StackedLeaves,
                                                            warm_stacked)
@@ -656,9 +684,26 @@ class MutableP2HIndex:
                           warmed=0)
             if segs:
                 stk = StackedLeaves.from_segments(segs)
-                prepub.update(stacked=stk, sources=tuple(segs),
-                              warmed=warm_stacked(stk))
+                prepub.update(stacked=stk, sources=tuple(segs))
+                hook = self._warmup_hook
+                if hook is None:
+                    # one index: the shard-local stack is the served one
+                    prepub["warmed"] = warm_stacked(stk)
+                else:
+                    # sharded: serving goes through the hook's cross-shard
+                    # concatenation, never the shard-local stack
+                    try:
+                        hook(stk)
+                        prepub["warmed"] += 1
+                    except Exception:
+                        pass
             if built is not None:
+                # the exchange's round 1 beams each segment tree: record
+                # its templates against the new tree too
+                from repro_torch.core.distributed import warm_round1
+
+                prepub["warmed"] += warm_round1(
+                    built.tree, is_bc=(self.variant == "bc"))
                 prepub["locator"] = _seg_locator(built)
             return prepub
         except Exception:
@@ -743,7 +788,9 @@ class MutableP2HIndex:
         and folds leftover sealed buffers into a segment first, so the
         state is always segments + one active delta.  With a WAL attached
         the checkpoint records the log frontier it covers, and the covered
-        prefix of the log is truncated away."""
+        prefix of the log is truncated away.  The log is committed before
+        the checkpoint is written, so the checkpoint never covers a record
+        that is not on disk."""
         from repro_torch.checkpoint import CheckpointManager
 
         with self._lock:
@@ -755,7 +802,14 @@ class MutableP2HIndex:
             state, meta = self._state_locked()
             if self._wal is not None:
                 # everything at seq <= wal_seq is in the serialised state:
-                # restore replays strictly past it
+                # restore replays strictly past it.  Commit first, so the
+                # log on disk holds every record the checkpoint covers: a
+                # record still in the writer's buffer when a crash follows
+                # the checkpoint would vanish from the log, the reopened
+                # log would hand its seq and offset to a later write, and
+                # the next restore would skip that acknowledged write as
+                # covered.
+                self._wal.commit(force=True)
                 meta["wal_offset"] = self._wal.tail_offset()
                 meta["wal_seq"] = self._wal.last_seq
             step = self._epoch

@@ -34,7 +34,7 @@ from repro_torch.core import search
 from repro_torch.core.balltree import FlatTree
 from repro_torch.stream.delta import delta_topk
 
-__all__ = ["Segment", "Snapshot", "DeltaView"]
+__all__ = ["Segment", "Snapshot", "DeltaView", "ShardedSnapshot"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,6 +377,129 @@ class Snapshot:
             extra_d=extra_d, extra_i=extra_i, bq=bq, split=split,
             use_ball=is_bc, use_cone=is_bc, mesh=mesh, mesh_axis=mesh_axis)
         return fd, fi, cnt
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSnapshot:
+    """A cross-shard snapshot pin: one per-shard :class:`Snapshot` each,
+    plus the **epoch vector** (one epoch per shard).
+
+    Each component is individually consistent (atomic per-shard publish);
+    the vector pins the exact cross-shard state a query ran against while
+    compactions republish shards independently.  Validity of a lambda cap
+    against this view is per shard: a cap recorded at epoch vector ``E``
+    is valid iff ``E[s] >= last_delete_epoch[s]`` for every shard ``s``,
+    so one shard's delete does not invalidate caps recorded against the
+    other shards' states.
+
+    ``query`` runs the two-round lambda exchange
+    (:func:`repro_torch.core.distributed.two_round_exchange`) with each
+    shard's pinned ``Snapshot`` as the round backend, so the exchange
+    spans heterogeneous shard states: delta-only, multi-segment,
+    mid-compaction (sealed delta views included).
+    """
+
+    shards: tuple  # tuple[Snapshot, ...] -- index s = shard s's pin
+    epoch: tuple  # per-shard epoch vector
+    last_delete_epoch: tuple  # per-shard delete-epoch vector
+    variant: str
+    d: int
+    #: router version this view was pinned under (0 = the un-versioned
+    #: hash router).  A split/merge changes the shard count, so the epoch
+    #: vector's length changes with it and the lambda cache's staleness
+    #: check already invalidates caps across a resharding; this field
+    #: makes the placement generation observable to the serving layer.
+    router_version: int = 0
+    #: serving mesh: ``None`` or one device (more is ROADMAP.md, queue 1,
+    #: item 12).  Placement, not state -- excluded from identity.
+    mesh: Any = dataclasses.field(default=None, compare=False)
+    mesh_axis: str = dataclasses.field(default="shard", compare=False)
+
+    # ------------------------------------------------------------------
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def device(self) -> torch.device:
+        """Where queries run (the shards' device)."""
+        return (self.shards[0].device if self.shards
+                else torch.device("cpu"))
+
+    @property
+    def live_count(self) -> int:
+        return sum(s.live_count for s in self.shards)
+
+    @property
+    def max_norm(self) -> float:
+        return max((s.max_norm for s in self.shards), default=0.0)
+
+    @property
+    def segments(self) -> tuple:
+        """All shards' segments, flattened (fan-out accounting)."""
+        return tuple(seg for s in self.shards for seg in s.segments)
+
+    @property
+    def deltas(self) -> tuple:
+        """All shards' delta views, flattened."""
+        return tuple(v for s in self.shards for v in s.deltas)
+
+    @property
+    def delta_live(self) -> int:
+        return sum(s.delta_live for s in self.shards)
+
+    def live_points(self):
+        """Union of the shard live sets as ``(points, gids)`` host arrays
+        -- the brute-force oracle's view."""
+        parts = [s.live_points() for s in self.shards]
+        pts = [p for p, _ in parts if len(p)]
+        gids = [g for _, g in parts if len(g)]
+        if not pts:
+            return (np.zeros((0, self.d), np.float32),
+                    np.zeros((0,), np.int32))
+        return np.concatenate(pts), np.concatenate(gids)
+
+    @property
+    def tombstone_frac(self) -> float:
+        """Dead fraction over all shards' sealed rows (dispatch signal)."""
+        live = sum(seg.live for seg in self.segments)
+        dead = sum(seg.dead for seg in self.segments)
+        return dead / (live + dead) if live + dead else 0.0
+
+    def query(self, queries, k: int = 1, *, method: str = "sweep",
+              frac: float = 1.0, frac1: float = 0.25, lambda_cap=None,
+              return_counters: bool = False, return_info: bool = False,
+              stacked: bool | None = None, probe_tiles: int | None = None,
+              probe_dtype: str | None = None, deadline=None,
+              resilience=None, bq: int | None = None,
+              split: int | None = None):
+        """Top-k over the cross-shard live set via the two-round lambda
+        exchange; same contract as :meth:`Snapshot.query` (normalised
+        queries in, global ids and host arrays out) plus ``frac1``, the
+        round-1 prefix fraction.  ``return_info`` also returns the
+        exchange's ``lambda0`` and per-shard k-ths.  ``stacked`` controls
+        round 2's segment-parallel form (every shard's segments in one
+        stacked launch under lambda0); ``probe_tiles``/``probe_dtype`` are
+        that launch's probe knobs and ``bq``/``split`` its schedule.
+        ``deadline``/``resilience`` route through the exchange's
+        degraded-capable branch (:func:`repro_torch.core.distributed.
+        two_round_exchange`)."""
+        from repro_torch.core.distributed import two_round_exchange
+
+        out = two_round_exchange(self.shards, queries, k, frac1=frac1,
+                                 method=method, frac=frac,
+                                 lambda_cap=lambda_cap,
+                                 return_info=return_info, stacked=stacked,
+                                 probe_tiles=probe_tiles,
+                                 probe_dtype=probe_dtype,
+                                 mesh=self.mesh, mesh_axis=self.mesh_axis,
+                                 deadline=deadline, resilience=resilience,
+                                 bq=bq, split=split)
+        if return_info:
+            bd, bi, cnt, info = out
+            return (bd, bi, cnt, info) if return_counters else (bd, bi, info)
+        bd, bi, cnt = out
+        return (bd, bi, cnt) if return_counters else (bd, bi)
 
 
 def _segment_query(tree: FlatTree, q, k: int, *, method: str, frac: float,

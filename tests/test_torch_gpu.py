@@ -582,3 +582,156 @@ def test_engine_equals_direct_route_cold_and_warm(cuda, index):
     for _ in range(2):
         bd, bi = small.query(q, 10)
         assert_topk_parity(bd, bi, dd, di)
+
+
+# ------------------------------------------- the sharded index's round 2
+def _sharded(device, seed=0):
+    """3 hashed shards of 2 sealed segments each, live deltas, deletes."""
+    from repro_torch.stream import ShardedMutableP2HIndex
+
+    rng = np.random.default_rng(seed)
+    m = ShardedMutableP2HIndex.from_data(
+        rng.normal(size=(1800, 16)).astype(np.float32), 3, n0=32,
+        device=device, policy=CompactionPolicy(
+            delta_capacity=120, tombstone_frac=0.95, max_segments=8))
+    m.insert_batch(rng.normal(size=(450, 16)).astype(np.float32))
+    for g in range(0, 1800, 11):
+        m.delete(g)
+    return m
+
+
+def _recording(monkeypatch):
+    """Keep each K2 launch's operands; returns the list they land in."""
+    recs, real = [], tss.stacked_sweep
+
+    def recording(*args, **kw):
+        recs.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tss, "stacked_sweep", recording)
+    return recs, real
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(bq=8, split=1),
+                                dict(method="stacked", probe_tiles=2),
+                                dict(method="stacked", probe_dtype="bf16",
+                                     probe_tiles=2)])
+def test_round2_launch_matches_plain(cuda, monkeypatch, kw):
+    """Round 2 of the exchange is one K2 launch per batch (two with a probe
+    pass) over every shard's segments, with ``shard_bounds``; each launch
+    equals its plain version at its schedule, skips included."""
+    m = _sharded(cuda)
+    q = np.random.default_rng(9).normal(size=(40, 17)).astype(np.float32)
+    recs, real = _recording(monkeypatch)
+    before = p2h_scan.p2h_sweep.launches
+    bd, bi, info = m.query(q, 10, return_info=True, **kw)
+    torch.cuda.synchronize()
+    assert len(recs) == (2 if kw.get("probe_tiles") else 1)
+    assert p2h_scan.p2h_sweep.launches == before  # round 1 is no kernel
+    assert info["shard_kth"].shape == (3, len(q))
+    for rec in recs:
+        split = rec["split"] or tss.default_split(
+            rec, k=rec["k"], bq=rec["bq"],
+            probe_dtype=rec.get("probe_dtype", "f32"))
+        rec = dict(rec, split=split)
+        kd, ki, ks = real(**rec)
+        rd, ri, rs = ref.stacked_sweep_ref(**rec)
+        assert torch.equal(ks, rs)
+        assert torch.equal(kd, rd)
+        rd2 = rd.reshape(-1, 10).cpu().numpy()
+        assert_topk_parity(kd.reshape(-1, 10).cpu().numpy(),
+                           ki.reshape(-1, 10).cpu().numpy(), rd2,
+                           ri.reshape(-1, 10).cpu().numpy(), rd2[:, -1])
+    X, G = m.snapshot().live_points()
+    qn = normalize_query(q)
+    assert_exact_topk(bd, bi, G[oracle(X, qn, 11)[1]],
+                      torch.from_numpy(_by_gid(X, G)).to(cuda),
+                      torch.from_numpy(qn).to(cuda))
+    assert (info["lambda0"] >= oracle(X, qn, 10)[0][:, -1] - 1e-6).all()
+
+
+@pytest.mark.parametrize("kw", [dict(bq=8, split=1),
+                                dict(method="pallas", stacked=False, bq=8,
+                                     split=1)])
+def test_sharded_on_card_matches_host(cuda, kw):
+    """The exchange on the card equals the host's at the host's schedule:
+    answers within the tie rule, counters and per-shard k-ths equal; the
+    sequential round 2 launches K1 once per live segment."""
+    on_card, on_host = _sharded(cuda, seed=1), _sharded("cpu", seed=1)
+    q = np.random.default_rng(10).normal(size=(24, 17)).astype(np.float32)
+    before = p2h_scan.p2h_sweep.launches
+    cd, ci, cs, cinfo = on_card.query(q, 10, return_stats=True,
+                                      return_info=True, **kw)
+    launched = p2h_scan.p2h_sweep.launches - before
+    hd, hi, hs, hinfo = on_host.query(q, 10, return_stats=True,
+                                      return_info=True, **kw)
+    assert_topk_parity(cd, ci, hd, hi)
+    assert cs == hs
+    np.testing.assert_allclose(cinfo["shard_kth"], hinfo["shard_kth"],
+                               rtol=1e-5, atol=1e-6)
+    live_segs = sum(1 for s in on_card.snapshot().segments if s.live)
+    assert launched == (live_segs if kw.get("stacked") is False else 0)
+
+
+def _failing_supervisor(plans):
+    from repro_torch.runtime.fault_tolerance import RetryPolicy
+    from repro_torch.serve import (FaultInjector, FaultSpec,
+                                   ResilienceConfig, ShardSupervisor)
+
+    return ShardSupervisor(ResilienceConfig(
+        shard_timeout_s=60.0, breaker_failures=99,
+        fault_injector=FaultInjector(
+            {s: [FaultSpec("error", **kw)] for s, kw in plans.items()}),
+        retry=RetryPolicy(max_restarts=0)))
+
+
+@pytest.mark.parametrize("armed", [False, True])
+def test_round2_launch_error_raises_on_card(cuda, monkeypatch, armed):
+    """A K2 wrapper that raises on the card surfaces from the exchange as
+    ``DeviceFault``, armed with a supervisor or not: no shard is answered
+    by a plain sweep instead, and K1 never launches."""
+    from repro_torch.serve import DeviceFault
+
+    m = _sharded(cuda, seed=2)
+
+    def broken(*a, **kw):
+        raise RuntimeError("K2 launch failed")
+
+    monkeypatch.setattr(tss, "stacked_sweep", broken)
+    q = np.random.default_rng(12).normal(size=(16, 17)).astype(np.float32)
+    kw = {"resilience": _failing_supervisor({})} if armed else {}
+    before = p2h_scan.p2h_sweep.launches
+    with pytest.raises(DeviceFault, match="K2 launch failed"):
+        m.query(q, 10, **kw)
+    assert p2h_scan.p2h_sweep.launches == before
+
+
+def test_failed_round2_unit_isolates_on_the_kernel_on_card(cuda,
+                                                           monkeypatch):
+    """Shard 1 answers round 1, then fails round 2's one K2 launch and its
+    own call: shards 0 and 2 are each answered by a K2 launch of their
+    own, never by a plain sweep, and equal the live-shard oracle."""
+    from repro_torch.stream import snapshot as tsnap
+
+    m = _sharded(cuda, seed=3)
+    swept, real_seg = [], tsnap._segment_query
+
+    def seg_spy(*a, **kw):
+        swept.append(kw["method"])
+        return real_seg(*a, **kw)
+
+    monkeypatch.setattr(tsnap, "_segment_query", seg_spy)
+    recs, _ = _recording(monkeypatch)
+    q = np.random.default_rng(13).normal(size=(16, 17)).astype(np.float32)
+    bd, bi, info = m.query(q, 10, return_info=True,
+                           resilience=_failing_supervisor({1: {"after": 1}}))
+    torch.cuda.synchronize()
+    assert info["missing_shards"] == (1,)
+    assert len(recs) >= 2 and set(swept) == {"beam"}
+    snaps = [s for si, s in enumerate(m.snapshot().shards) if si != 1]
+    X = np.concatenate([s.live_points()[0] for s in snaps])
+    G = np.concatenate([s.live_points()[1] for s in snaps])
+    qn = normalize_query(q)
+    assert_exact_topk(bd, bi, G[oracle(X, qn, 11)[1]],
+                      torch.from_numpy(_by_gid(X, G)).to(cuda),
+                      torch.from_numpy(qn).to(cuda))

@@ -9,8 +9,8 @@ monitor, the supervisor's error/retry and breaker paths, batcher and engine
 shedding.  Tests that wait on a real clock (timeouts, hedging, a hung call,
 an expired deadline) are marked ``resilience``; every wait in them is
 bounded by an event, a join or a deadline, and no assertion on elapsed time
-is tighter than ten times the time it expects.  The exchange and sharded
-cases wait for the sharded index (ROADMAP.md, queue 1, item 10).
+is tighter than ten times the time it expects.  The degraded exchange over
+a sharded index is ``test_torch_sharded.py``'s.
 """
 import threading
 import time
@@ -368,7 +368,7 @@ def test_engine_sheds_queue_full_and_expired_deadline():
 def test_engine_armed_serves_the_plain_path_bit_for_bit():
     """On a single index an armed engine (deadlines included) runs the
     plain path: the same answers, and the exchange's supervisor is never
-    called -- the resilient exchange waits for the sharded index."""
+    called -- only a sharded index's exchange is supervised."""
     m = MutableP2HIndex.from_data(_mkdata(300, seed=1), n0=32, device="cpu")
     q = _queries(5)
     bd0, bi0 = P2HEngine(m, slot_size=4).query(q, k=4)

@@ -9,8 +9,10 @@ agree within the tie rule of ``_torch_parity``, and the eight counters,
 the route counts and the lambda cache's stats are equal, cold and warm.
 Inside the port the engine's answers equal the direct route's bit for
 bit.  The batcher, the dispatch table and the lambda cache are held to the
-JAX package's on identical inputs; the sharded and mesh paths stay refused
-(ROADMAP.md, queue 1, item 10).
+JAX package's on identical inputs, also on clustered data, where each
+package is held to the oracle on its own; the device-sharded forest and a
+multi-device mesh stay refused (ROADMAP.md, queue 1, item 12).  The
+sharded mutable index's serving is ``test_torch_sharded.py``'s.
 """
 import dataclasses
 
@@ -28,6 +30,7 @@ from repro.stream import CompactionPolicy as JCompaction  # noqa: E402
 from repro.stream import MutableP2HIndex as JMutable  # noqa: E402
 from repro_torch.core.api import P2HIndex  # noqa: E402
 from repro_torch.core.balltree import append_ones, normalize_query  # noqa: E402
+from repro_torch.core.exact import assert_exact_topk, exact_search  # noqa: E402
 from repro_torch.data.pipeline import make_p2h_dataset  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     DispatchPolicy,
@@ -394,31 +397,67 @@ def test_engine_stats_shape(setup):
     assert "mesh_devices" not in st  # no mesh: every batch is one program
 
 
+# -------------------------------------------------------- clustered data
+@pytest.fixture(scope="module")
+def clustered():
+    """Clustered data (norms near 25): the packages' f32 sums there differ
+    by up to 1.4e-6, above the parity atol, so each package is held to the
+    oracle on its own."""
+    data, q = make_p2h_dataset(N, D, kind="clustered", n_queries=16, seed=0)
+    pts = torch.from_numpy(append_ones(data))
+    qn = torch.from_numpy(normalize_query(q))
+    _, oi = exact_search(pts, qn, K + 1)
+    return (P2HIndex.build(data, n0=128, device="cpu"),
+            JIndex.build(data, n0=128), q, oi, pts, qn)
+
+
+@pytest.mark.parametrize("route", [None, "dfs", "sweep", "pallas"])
+def test_engine_on_clustered_data_equals_the_oracle(clustered, route):
+    """Each package's engine, cold and warm, on every exact route (and
+    auto-dispatch), holds its ids to the oracle's at float64 distances
+    (``assert_exact_topk``); the routes taken and the warm cache's hits
+    are the same in both."""
+    tidx, jidx, q, oi, pts, qn = clustered
+    te, je = P2HEngine(tidx, slot_size=8), JEngine(jidx, slot_size=8)
+    for _ in range(2):  # cold, then warm
+        for eng in (te, je):
+            bd, bi = eng.query(q, k=K, method=route)
+            assert_exact_topk(np.array(bd), np.array(bi), oi, pts, qn)
+    assert te.stats()["routes"] == je.stats()["routes"]
+    assert (te.stats()["lambda_cache"]["hits"]
+            == je.stats()["lambda_cache"]["hits"] > 0)
+
+
 # --------------------------------------------------------------- refusals
 def test_engine_refuses_sharded_and_mesh_paths(setup, monkeypatch):
-    """The sharded index, its resilient exchange and the serving mesh wait
-    for ROADMAP.md queue 1 item 10; each is refused, never half-served."""
+    """The device-sharded forest (``sharded=``, the ``"sharded"`` route)
+    and a serving mesh of more than one device wait for ROADMAP.md queue 1
+    item 12; each is refused, never half-served.  A front-end that only
+    looks sharded is not a sharded index."""
     data, tidx, _, q, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         P2HEngine(tidx, sharded=object())
 
-    class ShardedFrontEnd:  # a sharded mutable front-end holds shards
+    class ShardedFrontEnd:  # holds shards, but is no sharded index
         shards = ()
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="ShardedMutableP2HIndex"):
         P2HEngine(ShardedFrontEnd())
     with pytest.raises(TypeError, match="P2HIndex"):
         P2HEngine(object())
     eng = P2HEngine(tidx, slot_size=8)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         eng.query(q, k=K, method="sharded")
     m = MutableP2HIndex.from_data(data[:500], n0=64, device="cpu")
     meng = P2HEngine(m, slot_size=8)
     snap = m.snapshot()
-    object.__setattr__(snap, "mesh", "a serving mesh")
+    object.__setattr__(snap, "mesh", ["cpu", "cpu"])  # two devices
     monkeypatch.setattr(m, "snapshot", lambda: snap)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         meng.query(q, k=K)
+    object.__setattr__(snap, "mesh", "cpu")  # one device serves
+    bd, bi = meng.query(q, k=K)
+    assert np.isfinite(bd).all()
 
 
 def test_engine_serves_only_its_own_index(setup):

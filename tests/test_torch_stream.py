@@ -315,7 +315,8 @@ def test_background_compaction_stays_exact():
 
 def test_refusals(monkeypatch, pair, tmp_path):
     """What the mutable index still refuses: an engine over another index,
-    a sharded engine (ROADMAP.md queue 1 item 10), a missing checkpoint
+    the device-sharded forest's engine (ROADMAP.md queue 1 item 12), a
+    missing checkpoint
     with or without a log, and no CUDA device without ``device=``."""
     from repro_torch.serve import P2HEngine
 
@@ -323,7 +324,7 @@ def test_refusals(monkeypatch, pair, tmp_path):
     other = MutableP2HIndex(DIM, device="cpu")
     with pytest.raises(ValueError, match="different index"):
         t.query(np.ones((1, DIM + 1), np.float32), engine=P2HEngine(other))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         P2HEngine(t, sharded=object())
     with pytest.raises(FileNotFoundError):
         MutableP2HIndex.load(str(tmp_path / "nowhere"), wal=object())
