@@ -22,7 +22,11 @@ Three paths, each through the entry points a user calls:
     one K2 launch over every shard's segments (K1 once per segment on the
     sequential route), served by ``P2HEngine``, degraded around failing
     shards, and, on a smaller index with per-shard logs, split, merged,
-    saved and recovered.
+    saved and recovered;
+  * slice 7, the paper's comparison: the BC-Tree and the Ball-Tree (the
+    same tree, K1 with the variant's flags) beside the NH and FH hashing
+    baselines (``NHIndex``, ``FHIndex``: host tables and candidates, one
+    batched verification on the card).
 
 Phases, one line each:
 
@@ -102,6 +106,23 @@ Phases, one line each:
                 acknowledged writes, ``split_shard`` under exact queries,
                 ``merge_shards``, ``save``, more writes, a drop and
                 ``open``, holding exactly the acknowledged writes
+ 11. baselines  Table III on phase 3's data: build seconds and
+                ``index_bytes`` of the BC-Tree and the Ball-Tree (phase 3's
+                tree), of ``NHIndex.build`` and ``FHIndex.build`` (m = 16,
+                lam = 4 d, FH l = 4: host build and upload apart), and of NH
+                with the exact lift on the first 20,000 points (the cut on
+                its line); then the query rows on 1024 queries: the
+                BC-Tree's phase-6 batch and recall, the Ball-Tree through
+                K1 (``use_ball = use_cone = False``) with its launches
+                counted from 0, that launch replayed against
+                ``p2h_sweep_ref`` (distances bit for bit, skips equal), its
+                answer held to the oracle at float64 and its batch timed;
+                NH and FH at budgets 256 and 2048: host candidate seconds,
+                the card's verification ms, ``verified``, recall@10 beside
+                its chance level budget / n, the candidates of 64 queries
+                held to the reference's loop written out plainly, every
+                answer held to a float64 top-k over its own candidate set,
+                and recall at 2048 at least recall at 256 less 0.05
   8. kernels    one JSON line, after every phase: per kernel its launches
                 (by phase), error and times
 
@@ -151,6 +172,11 @@ WAL_N, WAL_INSERTS, WAL_DELETES, WAL_MORE = 125_000, 4096, 1000, 1024
 # the split and after the save
 SHARDS, SHARD_SLOTS, FAILING = 8, (64, 1024), ((3,), (0, 5))
 DUR_N, DUR_SHARDS, DUR_WRITES, DUR_MORE = 125_000, 4, (2048, 512), (512, 128)
+# the baselines (``bench_indexing.py:24-25``, ``bench_query.py:32``): hash
+# tables, FH's partitions, NH's exact-lift build cut to its first points,
+# the candidate budgets
+BASE_M, BASE_L, LIFT_N, BUDGETS = 16, 4, 20_000, (256, 2048)
+REF_ROWS = 64  # queries whose candidates are held to the reference loop
 SRC = Path(__file__).resolve().parent / "src"
 BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
@@ -264,7 +290,8 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         wal_inserts=WAL_INSERTS, wal_deletes=WAL_DELETES,
         wal_more=WAL_MORE, shards=SHARDS, shard_slots=SHARD_SLOTS,
         failing=FAILING, dur_n=DUR_N, dur_shards=DUR_SHARDS,
-        dur_writes=DUR_WRITES, dur_more=DUR_MORE) -> dict:
+        dur_writes=DUR_WRITES, dur_more=DUR_MORE, lift_n=LIFT_N,
+        budgets=BUDGETS) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
     size; ``sweep_n`` cuts slice 1's depth alone); returns the kernels
     record."""
@@ -316,10 +343,14 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
                           failing=failing, dur_n=dur_n,
                           dur_shards=dur_shards, dur_writes=dur_writes,
                           dur_more=dur_more)
+    base = run_baselines(device, card, frozen, reps=reps, lift_n=lift_n,
+                         budgets=budgets)
     for rec, phase in ((k1, "5 query"), (k2, "7 stacked f32")):
         rec["launches_by_phase"] = {
             phase: rec["launches"], "9 serve": served[rec["name"]],
             **{ph: n[rec["name"]] for ph, n in sharded.items()}}
+    k1["launches_by_phase"]["11 baselines"] = base["p2h_sweep"]
+    for rec in (k1, k2):
         rec["launches"] = sum(rec["launches_by_phase"].values())
     return {"kernels": [k1, k2]}
 
@@ -481,7 +512,8 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
         "library_ms": library_ms,
     }
     return record, dict(index=index, x=x, q=q, pts=pts, qn=qn,
-                        oracle=(od, oi, nxt), oracle_ids=oi1)
+                        oracle=(od, oi, nxt), oracle_ids=oi1,
+                        batch_ms=batch_ms, answer_ids=bi)
 
 
 def sweep_bound(opnds: dict, live, d: int, skips, out_bytes: int):
@@ -1735,6 +1767,265 @@ def run_sharded_wal(device, card, x, q, *, n0, dur_n, dur_shards,
         **rdg, misroutes=r.stats()["misroutes"])
     r.close()
     shutil.rmtree(root, ignore_errors=True)
+
+
+def hold_candidates(what, bd, bi, pts, qn, cand, k: int,
+                    chunk: int = 256) -> dict:
+    """Hold a hashing baseline's answer ``(bd, bi)`` (B, k) to a float64
+    brute force over each query's own candidate set ``cand``: a row with
+    at most k candidates returns all of them, then -1; a longer row is
+    held through ``assert_exact_topk`` to its set's float64 top-(k+1), at
+    the tie tolerance of ``hold64`` (``TIE_UNITS u S``, ``S`` the row's
+    largest ``sum_j |q_j x_j|`` over those k + 1).  Raises naming
+    ``what``; returns readings."""
+    import torch
+
+    from repro_torch.core.exact import dists64
+
+    bi = np.asarray(bi)
+    lens = np.array([len(c) for c in cand])
+    for b in np.nonzero(lens <= k)[0]:
+        got = bi[b][bi[b] >= 0]
+        if (bi[b, len(got):] >= 0).any() or set(got) != set(cand[b]):
+            raise AssertionError(f"{what}: row {b} does not return its "
+                                 f"{lens[b]} candidates")
+    rows = np.nonzero(lens > k)[0]
+    err, tols = 0.0, []
+    for off in range(0, len(rows), chunk):
+        r = rows[off:off + chunk]
+        width = int(lens[r].max())
+        ids = np.full((len(r), width), -1, np.int64)
+        for j, b in enumerate(r):
+            ids[j, :lens[b]] = cand[b]
+        ids = torch.from_numpy(ids).to(pts.device)
+        q = qn[torch.from_numpy(r).to(pts.device)]
+        d64, mag = dists64(pts, q, ids.clamp(min=0))
+        d64 = torch.where(ids >= 0, d64, torch.full_like(d64, np.inf))
+        top = torch.argsort(d64, dim=1, stable=True)[:, :k + 1]
+        ref = torch.gather(ids, 1, top)
+        tol = torch.clamp(TIE_UNITS * U32 * torch.gather(mag, 1, top).amax(1),
+                          min=ATOL).cpu().numpy()
+        err = max(err, check(what, bd[r], bi[r], ref, pts, q, exact=True,
+                             atol=tol))
+        tols.append(tol)
+    tols = np.concatenate(tols) if tols else np.zeros(1)
+    return dict(f32_vs_f64_err=err, rows_short=int((lens <= k).sum()),
+                min_tol=float(tols.min()), max_tol=float(tols.max()))
+
+
+def reference_candidates(name, idx, qh, budget: int, rows,
+                         probes: int = 2) -> list:
+    """The JAX package's candidate loops (``core/nh.py:109-144``,
+    ``core/fh.py:113-132``) written out plainly, for the rows ``rows`` of
+    the normalised batch ``qh``: NH's windows per table up to the early
+    stop at ``4 * budget`` ids, then ``np.unique``; FH's two ends of every
+    partition of every table, which the reference takes for every query
+    (only their order depends on it, and ``np.unique`` drops the order);
+    then the seeded cut to ``budget``."""
+    from repro_torch.core import transform as T
+
+    fq = (T.lift(qh) if idx.lifted_pairs is None
+          else T.sampled_lift(qh, idx.lifted_pairs))
+    if name == "NH":
+        hq = np.floor((T.nh_query_transform(fq) @ idx.proj.T + idx.bias)
+                      / idx.width).astype(np.int32)
+        sets = []
+        for b in rows:
+            cand, count = [], 0
+            for t, keys in enumerate(idx.bucket_keys):
+                lo = np.searchsorted(keys, hq[b, t] - probes, "left")
+                hi = np.searchsorted(keys, hq[b, t] + probes, "right")
+                cand.append(idx.bucket_ids[t, lo:hi])
+                count += hi - lo
+                if count >= budget * 4:
+                    break
+            sets.append(np.unique(np.concatenate(cand)))
+    else:
+        m = idx.proj.shape[0]
+        per = max(1, budget // (m * len(idx.part_slices) * 2))
+        ends = []
+        for t in range(m):
+            for s, e in idx.part_slices:
+                take = min(per, e - s)
+                ends += [idx.sorted_ids[t, s:s + take],
+                         idx.sorted_ids[t, e - take:e]]
+        sets = [np.unique(np.concatenate(ends))] * len(rows)
+    return [c[np.random.default_rng(0).permutation(len(c))[:budget]]
+            if len(c) > budget else c for c in sets]
+
+
+def recall_at(ids, oracle_ids, k: int) -> float:
+    oracle_ids = np.asarray(oracle_ids)
+    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k
+                          for a, b in zip(np.asarray(ids), oracle_ids)]))
+
+
+def run_baselines(device, card, frozen: dict, *, reps, lift_n,
+                  budgets) -> dict:
+    """Phase 11, the paper's comparison (Table III and the query rows): the
+    BC-Tree and the Ball-Tree (the same tree, the variant's flags on K1)
+    beside the NH and FH hashing baselines, on phase 3's data and queries.
+    Returns K1's launches on the Ball-Tree's query."""
+    import torch
+
+    from repro_torch.core.exact import verify_candidates
+    from repro_torch.core.fh import FHIndex
+    from repro_torch.core.nh import NHIndex
+    from repro_torch.kernels import p2h_scan
+    from repro_torch.kernels import stacked_sweep as tss
+    from repro_torch.kernels.ref import p2h_sweep_ref
+
+    k = K
+    bc, x, q = frozen["index"], frozen["x"], frozen["q"]
+    pts, qn = frozen["pts"], frozen["qn"]
+    oi = frozen["oracle"][1].numpy()
+    n, d = x.shape
+    lam = 4 * d
+
+    # Table III: build seconds and index bytes
+    log("baselines-index", card=repr(card), index="BC-Tree", points=n,
+        build_seconds=f"{bc.report.build_seconds:.2f}",
+        index_bytes=bc.report.index_bytes, source="phase 3")
+    log("baselines-index", card=repr(card), index="Ball-Tree", points=n,
+        build_seconds=f"{bc.report.build_seconds:.2f}",
+        index_bytes=bc.tree.index_bytes(bc=False),
+        source="phase 3's tree (the build does not depend on the variant)")
+    hashes = {}
+    for name, cls, kw in (("NH", NHIndex, dict(lam=lam)),
+                          ("FH", FHIndex, dict(lam=lam, l=BASE_L))):
+        idx = cls.build(x, m=BASE_M, device=device, **kw)
+        hashes[name] = idx
+        log("baselines-index", card=repr(card), index=name, points=n,
+            m=BASE_M, lam=lam, **({"l": BASE_L} if name == "FH" else {}),
+            build_seconds=f"{idx.build_seconds:.2f}", clock="host",
+            upload_seconds=f"{idx.upload_seconds:.3f}",
+            index_bytes=idx.index_bytes())
+    exact = NHIndex.build(x[:lift_n], m=BASE_M, device=device)
+    log("baselines-index", card=repr(card), index="NH exact lift",
+        points=lift_n, m=BASE_M, lifted_dim=exact.proj.shape[1],
+        build_seconds=f"{exact.build_seconds:.2f}", clock="host",
+        upload_seconds=f"{exact.upload_seconds:.3f}",
+        index_bytes=exact.index_bytes(),
+        cut=f"first {lift_n} of {n} points: the lift of all would take "
+            f"{n * (exact.proj.shape[1] - 1) * 4 / 1e9:.1f} GB in f32 and "
+            f"twice that squared in float64")
+    del exact
+    gc.collect()
+
+    # query rows: the BC-Tree through K1 (phases 5-6)
+    log("baselines-query", card=repr(card), index="BC-Tree",
+        route="K1 (method=kernel)", queries=len(q), k=k,
+        batch_ms=f"{frozen['batch_ms']:.3f}",
+        recall=recall_at(frozen["answer_ids"], oi, k), source="phases 5-6")
+
+    # the Ball-Tree through K1 with the variant's flags, launches from 0
+    ball = dataclasses.replace(bc, variant="ball")
+    real_k1, recs = p2h_scan.p2h_sweep, []
+
+    def k1(*a, **kw):
+        recs.append(kw)
+        return real_k1(*a, **kw)
+
+    k1.launches = 0
+    k2_before = tss.LAUNCHES
+    sync(device)
+    p2h_scan.p2h_sweep = k1
+    try:
+        t0 = time.perf_counter()
+        bd, bi = ball.query(q, k, method="kernel")
+        sync(device)
+        host_s = time.perf_counter() - t0
+    finally:
+        p2h_scan.p2h_sweep = real_k1
+    launches = k1.launches
+    if launches < 1 or launches != len(recs) or tss.LAUNCHES != k2_before:
+        raise AssertionError(f"the Ball-Tree query made {launches} counted "
+                             f"K1 launches of {len(recs)}, and "
+                             f"{tss.LAUNCHES - k2_before} K2")
+    rec = recs[0]
+    if rec["use_ball"] or rec["use_cone"]:
+        raise AssertionError("the Ball-Tree query used the BC-Tree's "
+                             "point bounds")
+    if rec["split"] is None:
+        rec["split"] = p2h_scan.default_split(rec, k=rec["k"], bq=rec["bq"])
+    kd, ki, ks = real_k1(**rec)
+    rd, ri, rs = p2h_sweep_ref(**rec)
+    sync(device)
+    if not torch.equal(ks, rs):
+        raise AssertionError("Ball-Tree K1 launch: skip counts differ")
+    if not torch.equal(kd, rd):
+        raise AssertionError("Ball-Tree K1 launch: distances differ from "
+                             "the plain version's")
+    rd2 = rd.cpu().numpy()
+    check("Ball-Tree K1 launch ids vs plain", kd.cpu().numpy(),
+          ki.cpu().numpy(), rd2, ri.cpu().numpy(), rd2[:, -1], rtol=0.0,
+          atol=0.0)
+    err64 = check("Ball-Tree query(kernel) vs oracle, float64", bd, bi,
+                  frozen["oracle_ids"], pts, qn, exact=True)
+    kernel_ms = timed_ms(lambda: real_k1(**rec), reps, device)
+    batch_ms = timed_ms(lambda: ball.query(q, k, method="kernel"), 3,
+                        device)
+    log("baselines-query", card=repr(card), index="Ball-Tree",
+        route="K1 (method=kernel, use_ball=use_cone=False)",
+        queries=len(q), k=k, batch_ms=f"{batch_ms:.3f}",
+        kernel_ms=f"{kernel_ms:.4f}", recall=recall_at(bi, oi, k),
+        equals_oracle=True, f32_vs_f64_err=err64, launches=launches,
+        bq=rec["bq"], split=rec["split"], bit_equal_plain=True,
+        skips=int(ks.sum()), plain_skips=int(rs.sum()),
+        host_seconds=f"{host_s:.3f}")
+
+    # the hashes: host candidates, the device's verification, recall
+    for name, idx in hashes.items():
+        recalls = {}
+        for budget in budgets:
+            t0 = time.perf_counter()
+            hd, hi, st = idx.query(q, k, budget=budget)
+            sync(device)
+            query_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            qh, cand = idx.candidates(q, budget=budget)
+            cand_s = time.perf_counter() - t0
+            verified = sum(len(c) for c in cand)
+            if verified != st["verified"]:
+                raise AssertionError(f"{name}: verified {st['verified']} "
+                                     f"by query, {verified} by candidates")
+            rows = np.arange(0, len(q), max(1, len(q) // REF_ROWS))
+            ref = reference_candidates(name, idx, qh, budget, rows)
+            for b, c in zip(rows, ref):
+                if not np.array_equal(cand[b], c):
+                    raise AssertionError(f"{name} budget {budget}: query "
+                                         f"{b}'s candidates are not the "
+                                         f"reference loop's")
+            qt = torch.from_numpy(qh).to(device)
+            verify_ms = timed_ms(
+                lambda: verify_candidates(idx.data, qt, cand, k), reps,
+                device)
+            readings = hold_candidates(
+                f"{name} budget {budget}", hd, hi, idx.data, qt, cand, k)
+            recalls[budget] = recall_at(hi, oi, k)
+            log("baselines-query", card=repr(card), index=name,
+                budget=budget, queries=len(q), k=k,
+                candidate_seconds=f"{cand_s:.3f}", clock="host",
+                verify_ms=f"{verify_ms:.3f}", verified=verified,
+                query_seconds=f"{query_s:.3f}",
+                recall=recalls[budget], chance_recall=budget / n,
+                equals_candidates_top_k=True,
+                candidates_equal_reference_loop=len(rows),
+                distinct_candidate_sets=len({c.tobytes() for c in cand}),
+                **readings)
+        lo, hi_ = recalls[budgets[0]], recalls[budgets[-1]]
+        log("baselines-recall", index=name,
+            check=f"recall({budgets[-1]}) >= recall({budgets[0]}) - 0.05",
+            recall_hi=hi_, limit=lo - 0.05,
+            chance_recall_hi=budgets[-1] / n,
+            chance_recall_lo=budgets[0] / n)
+        if hi_ < lo - 0.05:
+            raise AssertionError(f"{name}: recall {hi_} at budget "
+                                 f"{budgets[-1]} under {lo} at "
+                                 f"{budgets[0]} less 0.05")
+    del hashes
+    gc.collect()
+    return {"p2h_sweep": launches}
 
 
 def main() -> int:

@@ -4,7 +4,12 @@ on-disk format.
 A checkpoint is written to ``step_N.tmp/`` -- one ``leaf_<i>.npy`` per
 array and a ``manifest.json`` with each leaf's shape, dtype and sha256 --
 and renamed to ``step_N/`` only after every file is fsync'd, so a save
-killed midway never leaves a checkpoint that a restore would pick up.
+killed midway never leaves a checkpoint that a restore would pick up.  A
+save over an existing ``step_N/`` moves it aside to ``prev_step_N/`` (a
+name both packages' ``all_steps`` skip) before the rename and removes it
+only after, and a manager opened on the directory puts back an aside
+whose ``step_N/`` never landed: a kill between the two renames leaves the
+old ``step_N``, never only an older step.
 
 Leaves are numbered in ``jax.tree_util``'s order -- dict keys sorted, lists
 in order -- so a checkpoint written by either package reads in the other
@@ -25,6 +30,10 @@ import torch
 
 __all__ = ["CheckpointManager", "write_json_atomic", "read_json",
            "fsync_dir", "flatten", "unflatten"]
+
+#: the name a step being rewritten is moved aside to; it does not start
+#: with ``step_``, so neither package's ``all_steps`` reads it
+_ASIDE = "prev_step_"
 
 
 def fsync_dir(path: str) -> None:
@@ -111,6 +120,22 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: list[BaseException] = []
+        self._restore_asides()
+
+    def _restore_asides(self):
+        """Finish or undo a rewrite of a step that a kill interrupted: an
+        aside whose new ``step_N`` landed is removed, one whose new step
+        did not is renamed back to ``step_N``."""
+        for name in os.listdir(self.dir):
+            if not name.startswith(_ASIDE):
+                continue
+            aside = os.path.join(self.dir, name)
+            final = os.path.join(self.dir, "step_" + name[len(_ASIDE):])
+            if os.path.exists(os.path.join(final, "manifest.json")):
+                shutil.rmtree(aside, ignore_errors=True)
+            else:
+                os.rename(aside, final)
+                fsync_dir(self.dir)
 
     # ------------------------------------------------------------------
     def wait(self):
@@ -151,11 +176,18 @@ class CheckpointManager:
                     json.dump(manifest, fh)
                     fh.flush()
                     os.fsync(fh.fileno())
-                shutil.rmtree(final, ignore_errors=True)
+                aside = os.path.join(self.dir, f"{_ASIDE}{step}")
+                if os.path.isdir(final):  # a rewrite: the old step stays
+                    os.rename(final, aside)  # whole until the new is in
                 os.rename(tmp, final)
                 fsync_dir(self.dir)  # make the rename itself durable
+                shutil.rmtree(aside, ignore_errors=True)
                 self._gc()
             except BaseException as e:  # surfaced at the next wait()
+                try:  # an old step moved aside goes back to its place
+                    self._restore_asides()
+                except OSError:
+                    pass  # a manager opened on the directory retries it
                 self._error.append(e)
 
         if blocking:

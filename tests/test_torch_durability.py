@@ -192,6 +192,95 @@ def test_checkpoint_never_covers_a_record_not_on_disk(tmp_path, monkeypatch):
     rec.close()
 
 
+def _kill_the_rename_in(monkeypatch):
+    """``os.rename`` raises for a ``step_N.tmp`` source: a kill after a
+    rewrite's old ``step_N`` has left its place, before the new one is in."""
+    real = os.rename
+
+    def rename(src, dst):
+        if str(src).endswith(".tmp") and os.path.basename(
+                str(dst)).startswith("step_"):
+            raise OSError("killed before the new step was renamed in")
+        return real(src, dst)
+
+    monkeypatch.setattr(os, "rename", rename)
+
+
+def test_a_rewrite_killed_at_its_rename_keeps_the_step(tmp_path):
+    """A save over an existing step killed between moving the old one
+    aside and renaming the new one in (the directory as such a kill leaves
+    it): the next manager restores that step's old contents, not an older
+    step, and leaves no aside behind."""
+    root = str(tmp_path / "ck")
+    mgr = CheckpointManager(root, keep=2)
+    mgr.save(4, {"a": np.arange(3)}, blocking=True)
+    mgr.save(5, {"a": np.arange(5)}, blocking=True)
+    os.rename(os.path.join(root, "step_5"), os.path.join(root, "prev_step_5"))
+    os.makedirs(os.path.join(root, "step_5.tmp"))  # the new one, unfinished
+    rec = CheckpointManager(root)
+    assert rec.all_steps() == [4, 5]
+    leaves, manifest = rec.restore_leaves(5)
+    assert manifest["step"] == 5
+    np.testing.assert_array_equal(leaves[0], np.arange(5))
+    assert not [n for n in os.listdir(root) if n.startswith("prev_")]
+    rec.save(5, {"a": np.arange(7)}, blocking=True)  # a rewrite lands
+    np.testing.assert_array_equal(rec.restore_leaves(5)[0][0], np.arange(7))
+    assert sorted(os.listdir(root)) == ["step_4", "step_5"]
+
+
+def test_a_rewrite_whose_rename_raises_puts_the_step_back(tmp_path,
+                                                          monkeypatch):
+    """A rewrite whose rename into place raises puts the old step back
+    before the error surfaces: the same manager, and the JAX package's
+    manager, which knows no aside, read step N's old contents."""
+    from repro.checkpoint.manager import CheckpointManager as JManager
+
+    root = str(tmp_path / "ck")
+    mgr = CheckpointManager(root, keep=2)
+    mgr.save(4, {"a": np.arange(3)}, blocking=True)
+    mgr.save(5, {"a": np.arange(5)}, blocking=True)
+    _kill_the_rename_in(monkeypatch)
+    with pytest.raises(OSError):
+        mgr.save(5, {"a": np.arange(7)}, blocking=True)
+    monkeypatch.undo()
+    assert not [n for n in os.listdir(root) if n.startswith("prev_")]
+    for reader in (mgr, JManager(root)):
+        assert reader.all_steps() == [4, 5]
+        np.testing.assert_array_equal(reader.restore_leaves(5)[0][0],
+                                      np.arange(5))
+
+
+def test_a_shard_saved_twice_at_one_epoch_survives_the_rename_window(
+        tmp_path, monkeypatch):
+    """A mutable shard saved again with no write in between rewrites its
+    step; a kill inside that rewrite must not leave only the older step,
+    whose frontier the log has already been truncated past: the recovered
+    live set is every acknowledged write."""
+    ck, path = str(tmp_path / "ck"), str(tmp_path / "m.wal")
+    m = MutableP2HIndex(DIM, n0=32, device="cpu",
+                        policy=CompactionPolicy(delta_capacity=16))
+    m.attach_wal(ShardWal(path, config=WalConfig(fsync_every_n=1)))
+    rng = np.random.default_rng(9)
+    for _ in range(20):
+        m.insert(rng.normal(size=DIM).astype(np.float32))
+    m.save(ck)
+    for _ in range(15):
+        m.insert(rng.normal(size=DIM).astype(np.float32))
+    for g in range(0, 35, 4):
+        assert m.delete(g)
+    step = m.save(ck)
+    live = set(m.live_gids().tolist())
+    _kill_the_rename_in(monkeypatch)
+    with pytest.raises(OSError):
+        assert m.save(ck) == step  # the same epoch: a rewrite of the step
+    monkeypatch.undo()
+    m.close()
+    assert CheckpointManager(ck).latest_step() == step
+    r = MutableP2HIndex.load(ck, wal=ShardWal(path), device="cpu")
+    assert set(r.live_gids().tolist()) == live
+    r.close()
+
+
 def test_unknown_gid_delete_counts_misroute():
     data = np.random.default_rng(0).normal(size=(64, DIM)).astype(np.float32)
     idx = ShardedMutableP2HIndex.from_data(data, 2, n0=32, device="cpu")

@@ -20,7 +20,12 @@ from repro_torch.core.balltree import (  # noqa: E402
     build_tree,
     normalize_query,
 )
-from repro_torch.core.exact import assert_exact_topk, exact_search  # noqa: E402
+from repro_torch.core.exact import (  # noqa: E402
+    assert_exact_topk,
+    assert_topk_close,
+    dists64,
+    exact_search,
+)
 from repro_torch.data.pipeline import make_p2h_dataset  # noqa: E402
 from repro_torch.kernels import ops, p2h_scan, ref  # noqa: E402
 from repro_torch.kernels import stacked_sweep as tss  # noqa: E402
@@ -735,3 +740,36 @@ def test_failed_round2_unit_isolates_on_the_kernel_on_card(cuda,
     assert_exact_topk(bd, bi, G[oracle(X, qn, 11)[1]],
                       torch.from_numpy(_by_gid(X, G)).to(cuda),
                       torch.from_numpy(qn).to(cuda))
+
+
+@pytest.mark.parametrize("kind", ["nh", "fh"])
+@pytest.mark.parametrize("budget", [256, 2048])
+def test_hash_baselines_on_card_match_host(cuda, kind, budget):
+    """NH and FH: the card's batched verification equals the host's on the
+    same tables (``from_arrays`` of one build), ``verified`` equal, across
+    several 256-query chunks.  The two sum each f32 product in another
+    order, each a few ``u S`` off float64 (``u = 2**-24``, ``S`` the row's
+    largest ``sum_j |q_j x_j|``: ~20 here, so ~1e-6 a unit), so a row's
+    ties are judged at 6 ``u S``, the tolerance ``chip_smoke.py`` holds
+    them to."""
+    from repro_torch.core.fh import FHIndex
+    from repro_torch.core.nh import NHIndex
+
+    x, q = make_p2h_dataset(20_000, 32, kind="planted", n_queries=600,
+                            seed=4)
+    cls = NHIndex if kind == "nh" else FHIndex
+    host = cls.build(x, m=16, lam=128, device="cpu")
+    fields = {f: getattr(host, f) for f in (
+        ("proj", "bias", "width", "bucket_keys", "bucket_ids", "M")
+        if kind == "nh" else ("proj", "part_slices", "sorted_vals",
+                              "sorted_ids"))}
+    card = cls.from_arrays(**fields, lifted_pairs=host.lifted_pairs,
+                           data=host.data.numpy(), device=cuda)
+    assert card.data.device.type == "cuda"
+    hd, hi, hs = host.query(q, 10, budget=budget)
+    cd, ci, cs = card.query(q, 10, budget=budget)
+    assert cs == hs
+    qn = torch.from_numpy(normalize_query(q))
+    mag = dists64(host.data, qn, torch.from_numpy(hi).long())[1]
+    tol = np.maximum(6 * 2.0 ** -24 * mag.amax(1).numpy(), 1e-6)
+    assert_topk_close(cd, ci, hd, hi, rtol=1e-5, atol=tol)

@@ -54,6 +54,8 @@ def test_port_imports_neither_jax_nor_repro():
                    "repro_torch.runtime.fault_tolerance",
                    "repro_torch.stream.wal", "repro_torch.stream.mutable",
                    "repro_torch.core.api",
+                   "repro_torch.core.transform", "repro_torch.core.nh",
+                   "repro_torch.core.fh",
                    "repro_torch.kernels.stacked_sweep"):
         assert module in names, module
 
@@ -96,3 +98,57 @@ def test_sharded_modules_import_alone(module, names):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert names <= set(ast.literal_eval(out.stdout))
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.core.transform", {"lift", "sample_pairs", "sampled_lift",
+                                    "nh_data_transform",
+                                    "nh_query_transform"}),
+    ("repro_torch.core.nh", {"NHIndex"}),
+    ("repro_torch.core.fh", {"FHIndex"}),
+])
+def test_baseline_modules_import_alone(module, names):
+    """Each module of the baselines' slice imports on its own, first in a
+    fresh interpreter, with ``jax`` and ``repro`` unimportable."""
+    out = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=SRC,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert names <= set(ast.literal_eval(out.stdout))
+
+
+_EXAMPLE = r'''
+import runpy
+import sys
+
+
+def blocked(name):
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError(f"the example imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[2])
+mod = runpy.run_path(sys.argv[1], run_name="example")
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+assert callable(mod["main"])
+'''
+
+
+@pytest.mark.parametrize("example", ["quickstart_torch",
+                                     "active_learning_torch",
+                                     "serve_batch_torch"])
+def test_port_examples_import_neither_jax_nor_repro(example):
+    """The port's examples load (their module body, not ``main``) with
+    ``jax`` and ``repro`` unimportable."""
+    path = SRC.parent / "examples" / f"{example}.py"
+    out = subprocess.run([sys.executable, "-c", _EXAMPLE, str(path),
+                          str(SRC)], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
