@@ -26,7 +26,12 @@ Three paths, each through the entry points a user calls:
   * slice 7, the paper's comparison: the BC-Tree and the Ball-Tree (the
     same tree, K1 with the variant's flags) beside the NH and FH hashing
     baselines (``NHIndex``, ``FHIndex``: host tables and candidates, one
-    batched verification on the card).
+    batched verification on the card);
+  * slice 8, the serving mesh: the card named at four mesh positions, each
+    with its own stream -- the stacked route and round 2 of the exchange
+    with one K2 launch a position and pass, and the device-sharded forest
+    ``ShardedP2HIndex`` with one tree a position, K1 at each position in
+    each of its two rounds.
 
 Phases, one line each:
 
@@ -123,6 +128,22 @@ Phases, one line each:
                 held to the reference's loop written out plainly, every
                 answer held to a float64 top-k over its own candidate set,
                 and recall at 2048 at least recall at 256 less 0.05
+ 12. mesh       the card's device named at 4 positions, a stream each:
+                phase 7's index through ``query(method="stacked",
+                mesh=...)`` in every probe mode, bit for bit its one launch,
+                4 K2 launches a pass, each replayed against
+                ``stacked_sweep_ref``, with the one launch's and the mesh's
+                batch in turns, each position's pass-A and pass-B device
+                time, all positions' pass B at once on their streams and
+                the gathers; ``run_churn_parity`` at its defaults; round 2
+                of phase 10's exchange on the mesh, bit for bit its one
+                launch, each launch replayed; ``ShardedP2HIndex.build`` over
+                phase 3's data (4 shards of 250,000), its 1024 queries held
+                to the oracle at float64 (``hold64``), 8 K1 launches a
+                batch each replayed against ``p2h_sweep_ref``, the rounds
+                and the merge timed apart, and served by
+                ``P2HEngine(..., sharded=)`` at slot 1024, cold and warm
+                equal to the direct query
   8. kernels    one JSON line, after every phase: per kernel its launches
                 (by phase), error and times
 
@@ -177,6 +198,8 @@ DUR_N, DUR_SHARDS, DUR_WRITES, DUR_MORE = 125_000, 4, (2048, 512), (512, 128)
 # the candidate budgets
 BASE_M, BASE_L, LIFT_N, BUDGETS = 16, 4, 20_000, (256, 2048)
 REF_ROWS = 64  # queries whose candidates are held to the reference loop
+# the serving mesh: positions on the one card (its device named this often)
+MESH_POSITIONS = 4
 SRC = Path(__file__).resolve().parent / "src"
 BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
@@ -335,21 +358,25 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
     served = run_serve(device, card, frozen, mutable, hot=hot, slots=slots,
                        wal_n=wal_n, wal_inserts=wal_inserts,
                        wal_deletes=wal_deletes, wal_more=wal_more)
-    del mutable  # phase 10 holds its own copy of the data on the card
-    gc.collect()
-    sharded = run_sharded(device, card, frozen["x"], frozen["q"], n0=n0,
-                          reps=reps, shards=shards, fresh=fresh,
-                          deletes=deletes, slots=shard_slots,
-                          failing=failing, dur_n=dur_n,
-                          dur_shards=dur_shards, dur_writes=dur_writes,
-                          dur_more=dur_more)
+    sharded, exchange = run_sharded(
+        device, card, frozen["x"], frozen["q"], n0=n0, reps=reps,
+        shards=shards, fresh=fresh, deletes=deletes, slots=shard_slots,
+        failing=failing, dur_n=dur_n, dur_shards=dur_shards,
+        dur_writes=dur_writes, dur_more=dur_more)
     base = run_baselines(device, card, frozen, reps=reps, lift_n=lift_n,
                          budgets=budgets)
+    t0 = time.perf_counter()
+    meshed = run_mesh(device, card, mutable, exchange, frozen, n0=n0,
+                      reps=reps)
+    log("mesh", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    del mutable, exchange
+    gc.collect()
     for rec, phase in ((k1, "5 query"), (k2, "7 stacked f32")):
         rec["launches_by_phase"] = {
             phase: rec["launches"], "9 serve": served[rec["name"]],
-            **{ph: n[rec["name"]] for ph, n in sharded.items()}}
-    k1["launches_by_phase"]["11 baselines"] = base["p2h_sweep"]
+            **{ph: n[rec["name"]] for ph, n in sharded.items()},
+            "11 baselines": base["p2h_sweep"] if rec is k1 else 0,
+            **{ph: n[rec["name"]] for ph, n in meshed.items()}}
     for rec in (k1, k2):
         rec["launches"] = sum(rec["launches_by_phase"].values())
     return {"kernels": [k1, k2]}
@@ -1300,13 +1327,56 @@ def replay_stacked(what, recs, real, k, device):
     return max_err, live, plain_ms
 
 
+def recorded(fn, device):
+    """``fn()`` with every K1 and K2 launch counted from 0 and its
+    operands kept; returns (result, K2 records, K1 records, host s)."""
+    from repro_torch.kernels import p2h_scan
+    from repro_torch.kernels import stacked_sweep as tss
+
+    real_k2, real_k1 = tss.stacked_sweep, p2h_scan.p2h_sweep
+    k2_recs, k1_recs = [], []
+
+    def k2(*a, **kw):
+        k2_recs.append(kw)
+        return real_k2(*a, **kw)
+
+    def k1(*a, **kw):
+        k1_recs.append(kw)
+        return real_k1(*a, **kw)
+
+    k1.launches = 0
+    sync(device)
+    tss.LAUNCHES = 0
+    tss.stacked_sweep, p2h_scan.p2h_sweep = k2, k1
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        host_s = time.perf_counter() - t0
+    finally:
+        tss.stacked_sweep, p2h_scan.p2h_sweep = real_k2, real_k1
+    if tss.LAUNCHES != len(k2_recs) or k1.launches != len(k1_recs):
+        raise AssertionError("a launch went uncounted")
+    for rec in k2_recs:
+        if rec["split"] is None:
+            rec["split"] = tss.default_split(
+                rec, k=rec["k"], bq=rec["bq"],
+                probe_dtype=rec.get("probe_dtype", "f32"))
+    for rec in k1_recs:
+        if rec["split"] is None:
+            rec["split"] = p2h_scan.default_split(rec, k=rec["k"],
+                                                  bq=rec["bq"])
+    return out, k2_recs, k1_recs, host_s
+
+
 def run_sharded(device, card, x, q, *, n0, reps, shards, fresh, deletes,
                 slots, failing, dur_n, dur_shards, dur_writes,
                 dur_more) -> dict:
     """Phase 10: the sharded index through the two-round exchange, its
     kernels checked, timed, served, degraded; then the durable sharded
     index.  Returns each kernel's launches on the default exchange (the
-    phase's main path) and on the sequential round 2, by run."""
+    phase's main path) and on the sequential round 2, by run, and the
+    exchange's round-2 inputs and answer, which phase 12 runs again."""
     import torch
 
     from repro_torch.core import distributed
@@ -1373,47 +1443,11 @@ def run_sharded(device, card, x, q, *, n0, reps, shards, fresh, deletes,
             raise AssertionError(f"{what}: non-finite distances")
         return hold64(what, bd, bi, oracle or orc, qn, rows)
 
-    def recorded(fn):
-        """``fn()`` with every K1 and K2 launch counted from 0 and its
-        operands kept; returns (result, K2 records, K1 records, host s)."""
-        k2_recs, k1_recs = [], []
-
-        def k2(*a, **kw):
-            k2_recs.append(kw)
-            return real_k2(*a, **kw)
-
-        def k1(*a, **kw):
-            k1_recs.append(kw)
-            return real_k1(*a, **kw)
-
-        k1.launches = 0
-        sync(device)
-        tss.LAUNCHES = 0
-        tss.stacked_sweep, p2h_scan.p2h_sweep = k2, k1
-        try:
-            t0 = time.perf_counter()
-            out = fn()
-            sync(device)
-            host_s = time.perf_counter() - t0
-        finally:
-            tss.stacked_sweep, p2h_scan.p2h_sweep = real_k2, real_k1
-        if tss.LAUNCHES != len(k2_recs) or k1.launches != len(k1_recs):
-            raise AssertionError("a launch went uncounted")
-        for rec in k2_recs:
-            if rec["split"] is None:
-                rec["split"] = tss.default_split(
-                    rec, k=rec["k"], bq=rec["bq"],
-                    probe_dtype=rec.get("probe_dtype", "f32"))
-        for rec in k1_recs:
-            if rec["split"] is None:
-                rec["split"] = p2h_scan.default_split(rec, k=rec["k"],
-                                                      bq=rec["bq"])
-        return out, k2_recs, k1_recs, host_s
 
     # the main path: the default query, round 2 auto-promoted to the
     # stack -- one K2 launch, no K1
     (bd, bi, st, info), main_k2, main_k1, host_s = recorded(
-        lambda: m.query(q, k, return_stats=True, return_info=True))
+        lambda: m.query(q, k, return_stats=True, return_info=True), device)
     if len(main_k2) != 1 or main_k1:
         raise AssertionError(f"default query: {len(main_k2)} K2 and "
                              f"{len(main_k1)} K1 launches (want 1 and 0)")
@@ -1444,7 +1478,7 @@ def run_sharded(device, card, x, q, *, n0, reps, shards, fresh, deletes,
                                probe_tiles=tss.STACKED_PROBE_TILES_DEFAULT),
                             2)):
         (rd, ri, rst), recs, k1s, host_s = recorded(
-            lambda kw=kw: m.query(q, k, return_stats=True, **kw))
+            lambda kw=kw: m.query(q, k, return_stats=True, **kw), device)
         if len(recs) != want or k1s:
             raise AssertionError(f"{name}: {len(recs)} K2 launches (want "
                                  f"{want}) and {len(k1s)} K1")
@@ -1459,7 +1493,8 @@ def run_sharded(device, card, x, q, *, n0, reps, shards, fresh, deletes,
             tiles_skipped=rst["tiles_skipped"])
     # the sequential round 2: K1 once per segment, under lambda0
     (sd, si), _, seq_k1, host_s = recorded(
-        lambda: m.query(q[:seq_queries], k, method="pallas", stacked=False))
+        lambda: m.query(q[:seq_queries], k, method="pallas", stacked=False),
+        device)
     live_segs = sum(1 for s in snap.segments if s.live)
     if len(seq_k1) != live_segs:
         raise AssertionError(f"sequential round 2: {len(seq_k1)} K1 "
@@ -1513,6 +1548,9 @@ def run_sharded(device, card, x, q, *, n0, reps, shards, fresh, deletes,
         snap.shards, qn_np, k, method="sweep", stacked=None, lam0=lam0,
         probe_tiles=None)
     pd, pi = [p[0] for p in parts] + [fd], [p[1] for p in parts] + [fi]
+    # what phase 12 runs round 2 of again, under a mesh
+    exchange = dict(shards=snap.shards, qn=qn_np, lam0=lam0, one=(fd, fi),
+                    round2_ms=r2_ms)
     merge_ms = timed_ms(lambda: distributed._merge(pd, pi, k, queries,
                                                    device), reps, device)
     k2_ms = timed_ms(lambda: real_k2(**rec2), reps, device)
@@ -1648,7 +1686,7 @@ def run_sharded(device, card, x, q, *, n0, reps, shards, fresh, deletes,
     run_sharded_wal(device, card, x, q, n0=n0, dur_n=dur_n,
                     dur_shards=dur_shards, dur_writes=dur_writes,
                     dur_more=dur_more)
-    return launches
+    return launches, exchange
 
 
 def run_sharded_wal(device, card, x, q, *, n0, dur_n, dur_shards,
@@ -2026,6 +2064,246 @@ def run_baselines(device, card, frozen: dict, *, reps, lift_n,
     del hashes
     gc.collect()
     return {"p2h_sweep": launches}
+
+
+def run_mesh(device, card, mutable: dict, exchange: dict, frozen: dict, *,
+             n0, reps) -> dict:
+    """Phase 12: the serving mesh on the one card, ``device`` named at
+    ``MESH_POSITIONS`` positions, each with its own stream.  (a) phase 7's
+    index on the stacked route in every probe mode, bit for bit its one
+    launch, every position's K2 launch replayed against its plain version;
+    (b) the churn parity of ``stream/meshcheck.py``; (c) the device-sharded
+    forest over phase 3's data, one shard a position, held to the oracle
+    at float64, every K1 launch replayed, then served by ``P2HEngine``;
+    (d) round 2 of phase 10's exchange, bit for bit its one launch.
+    Returns each kernel's launches by run."""
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.core.balltree import append_ones
+    from repro_torch.core.distributed import ShardedP2HIndex
+    from repro_torch.kernels import p2h_scan, ref
+    from repro_torch.kernels import stacked_sweep as tss
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import per_position
+    from repro_torch.serve import P2HEngine
+    from repro_torch.stream.meshcheck import run_churn_parity
+
+    k, P = K, MESH_POSITIONS
+    real_k2, real_k1 = tss.stacked_sweep, p2h_scan.p2h_sweep
+    mesh = make_mesh((P,), ("shard",), devices=[device] * P)
+    m, q, qn = mutable["index"], frozen["q"], frozen["qn"]
+    launches = {}
+    # the oracle over the index's live set now: phase 9 deleted points
+    # since phase 7's oracle
+    X, G = m.snapshot().live_points()
+    live_orc = oracle64(X, G, qn, k, device)
+
+    # (a) the mutable index's stacked route on the mesh, every probe mode
+    f32 = None
+    for name, kw in (("f32", {}), ("single", dict(probe_tiles=0)),
+                     ("bf16", dict(probe_dtype="bf16")),
+                     ("int8", dict(probe_dtype="int8"))):
+        (od, oi, ost), one_recs, _, one_s = recorded(
+            lambda kw=kw: m.query(q, k, method="stacked", return_stats=True,
+                                  **kw), device)
+        (md, mi, mst), recs, k1s, host_s = recorded(
+            lambda kw=kw: m.query(q, k, method="stacked", return_stats=True,
+                                  mesh=mesh, **kw), device)
+        if k1s or len(recs) != P * len(one_recs):
+            raise AssertionError(f"mesh {name}: {len(recs)} K2 and "
+                                 f"{len(k1s)} K1 launches (want "
+                                 f"{P * len(one_recs)} and 0)")
+        if not (np.array_equal(md, od) and np.array_equal(mi, oi)):
+            raise AssertionError(f"mesh {name}: the answer differs from "
+                                 f"the one launch's")
+        if not np.isin(mi, G).all():
+            raise AssertionError(f"mesh {name}: a deleted gid was returned")
+        _, _, rdg = hold64(f"mesh {name}", md, mi, live_orc, qn)
+        k2_err, _, _ = replay_stacked(f"mesh {name}", recs, real_k2, k,
+                                      device)
+        if name == "f32":
+            f32 = (recs, one_recs)
+            launches["12 mesh stacked f32"] = {"stacked_sweep": len(recs),
+                                               "p2h_sweep": 0}
+        log("mesh-stacked", mode=name, positions=P, queries=len(q), k=k,
+            equals_one_launch=True, equals_oracle=True, **rdg,
+            k2_launches=len(recs), one_launch_k2=len(one_recs),
+            replayed=len(recs), matches_plain=True, k2_max_abs_err=k2_err,
+            tiles_skipped=mst["tiles_skipped"],
+            one_launch_tiles_skipped=ost["tiles_skipped"],
+            leaves_scanned=mst["leaves_scanned"],
+            one_launch_leaves_scanned=ost["leaves_scanned"],
+            host_seconds=f"{host_s:.3f}", one_host_seconds=f"{one_s:.3f}")
+    # the f32 batch: one launch and the mesh in turns; each position's
+    # passes alone, all positions' pass B at once on their streams, and
+    # the gathers between them
+    recs, one_recs = f32
+
+    def one():
+        return m.query(q, k, method="stacked")
+
+    def meshed():
+        return m.query(q, k, method="stacked", mesh=mesh)
+
+    one_ms = [timed_ms(one, 3, device)]
+    mesh_ms = [timed_ms(meshed, 3, device), timed_ms(meshed, 3, device)]
+    one_ms.append(timed_ms(one, 3, device))
+    dev = {}
+    for i, rec in enumerate(recs + one_recs):
+        tag = (f"pos{i % P}_{'AB'[i // P]}" if i < len(recs)
+               else f"one_{'AB'[i - len(recs)]}")
+        dev[tag] = device_ms(lambda rec=rec: real_k2(**rec), reps, device,
+                             "stacked_sweep_kernel")
+    pass_b = recs[P:]
+    together_ms = timed_ms(lambda: per_position(
+        mesh, "shard", lambda _i, _d, rec: real_k2(**rec), pass_b), reps,
+        device)
+    alone_ms = sum(timed_ms(lambda rec=rec: real_k2(**rec), reps, device)
+                   for rec in pass_b)
+    # the library's gathers on outputs of its own form: the probe planes,
+    # then pass B's planes, summed skips and probe skips
+    outs_a = [real_k2(**rec) for rec in recs[:P]]
+    outs_b = [(bd, bi, sa + sb, sa) for (_, _, sa), (bd, bi, sb)
+              in zip(outs_a, (real_k2(**rec) for rec in pass_b))]
+
+    def gathers():
+        return (tss._gather_planes([o[:2] for o in outs_a], device),
+                tss._gather_planes(outs_b, device))
+
+    gather_ms = timed_ms(gathers, reps, device)
+    log("mesh-timing", card=repr(card), positions=P,
+        one_launch_batch_ms=",".join(f"{t:.3f}" for t in one_ms),
+        mesh_batch_ms=",".join(f"{t:.3f}" for t in mesh_ms),
+        pass_b_all_positions_ms=f"{together_ms:.4f}",
+        pass_b_positions_alone_sum_ms=f"{alone_ms:.4f}",
+        gathers_ms=f"{gather_ms:.4f}", reps=reps,
+        **{f"{t}_device_ms": v for t, v in dev.items()})
+
+    # (b) churn parity at its defaults, on the card
+    t0 = time.perf_counter()
+    rep = run_churn_parity(make_mesh((P,), ("shard",), devices=[device] * P))
+    log("mesh-churn", positions=P, phases=",".join(
+        f"{p['phase']}:{p['segments']}" for p in rep["phases"]),
+        pinned_isolation=rep["pinned_isolation"],
+        final_live=rep["final_live"], equals_one_launch=True,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # (d) round 2 of phase 10's exchange on the mesh: one pass, one K2
+    # launch a position
+    ex = exchange
+    (r2, _, _), recs, k1s, host_s = recorded(
+        lambda: distributed._stacked_round2(
+            ex["shards"], ex["qn"], k, method="sweep", stacked=None,
+            lam0=ex["lam0"], probe_tiles=None,
+            placed=dict(mesh=mesh, mesh_axis="shard")), device)
+    if k1s or len(recs) != P:
+        raise AssertionError(f"mesh exchange: {len(recs)} K2 and "
+                             f"{len(k1s)} K1 launches (want {P} and 0)")
+    if not (torch.equal(r2[0], ex["one"][0])
+            and torch.equal(r2[1], ex["one"][1])):
+        raise AssertionError("mesh exchange: round 2 differs from its one "
+                             "launch")
+    k2_err, _, _ = replay_stacked("mesh exchange", recs, real_k2, k, device)
+    r2_ms = timed_ms(lambda: distributed._stacked_round2(
+        ex["shards"], ex["qn"], k, method="sweep", stacked=None,
+        lam0=ex["lam0"], probe_tiles=None,
+        placed=dict(mesh=mesh, mesh_axis="shard")), 3, device)
+    launches["12 mesh exchange round 2"] = {"stacked_sweep": len(recs),
+                                            "p2h_sweep": 0}
+    log("mesh-exchange", card=repr(card), positions=P,
+        shards=len(ex["shards"]), equals_one_launch=True,
+        k2_launches=len(recs), replayed=len(recs), matches_plain=True,
+        k2_max_abs_err=k2_err, round2_ms=f"{r2_ms:.3f}",
+        one_launch_round2_ms=f"{ex['round2_ms']:.3f}",
+        host_seconds=f"{host_s:.3f}")
+
+    # (c) the device-sharded forest: one tree a position
+    x = frozen["x"]
+    n = len(x)
+    fmesh = make_mesh((P,), ("data",), devices=[device] * P)
+    t0 = time.perf_counter()
+    forest = ShardedP2HIndex.build(x, fmesh, n0=n0, seed=SEED)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    (bd, bi, st), k2s, recs, host_s = recorded(lambda: forest.query(q, k),
+                                               device)
+    if k2s or len(recs) != 2 * P:
+        raise AssertionError(f"forest: {len(recs)} K1 and {len(k2s)} K2 "
+                             f"launches (want {2 * P} and 0)")
+    if not (np.isfinite(bd).all() and bd.shape == (len(q), k)):
+        raise AssertionError("forest: non-finite or misshapen answer")
+    orc = oracle64(append_ones(x), np.arange(n), qn, k, device)
+    _, _, rdg = hold64("forest", bd, bi, orc, qn)
+    k1_err, plain = 0.0, []
+    for i, rec in enumerate(recs):
+        kd, ki, ks = real_k1(**rec)
+        (rd, ri, rs), ms = timed_call(lambda rec=rec: ref.p2h_sweep_ref(
+            **rec), device)
+        plain.append(ms)
+        if not torch.equal(ks, rs):
+            raise AssertionError(f"forest K1 launch {i}: skip counts differ")
+        if not torch.equal(kd, rd):
+            raise AssertionError(f"forest K1 launch {i}: distances differ "
+                                 f"from the plain version's")
+        k1_err = max(k1_err, check(f"forest K1 launch {i} ids vs plain",
+                                   kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu()))
+    launches["12 mesh forest"] = {"p2h_sweep": len(recs),
+                                  "stacked_sweep": 0}
+    log("mesh-forest", positions=P, n=n, shard_n=forest.shard_n,
+        leaves_per_shard=forest.trees[0].num_leaves, queries=len(q), k=k,
+        build_seconds=f"{build_s:.1f}", equals_oracle=True, **rdg,
+        k1_launches=len(recs), replayed=len(recs), matches_plain=True,
+        bit_equal_plain=True, k1_max_abs_err=k1_err,
+        tiles_skipped=st["tiles_skipped"],
+        leaves_scanned=st["leaves_scanned"], host_seconds=f"{host_s:.3f}")
+    # the forest's phases as its query runs them, timed apart: round 1 at
+    # every position with the pmin, round 2 at every position, the gather
+    # with the merge and the psum
+    B = len(q)
+    inf = torch.full((B,), float("inf"), device=device)
+    fkw = dict(mesh=fmesh, axes=forest.axes, k=k)
+    firsts, lam0 = distributed._forest_round1(forest.trees, qn, inf,
+                                              frac1=0.02, **fkw)
+    outs = distributed._forest_round2(forest.trees, firsts, lam0,
+                                      shard_n=forest.shard_n, n=n, **fkw)
+    r1_ms = timed_ms(lambda: distributed._forest_round1(
+        forest.trees, qn, inf, frac1=0.02, **fkw), reps, device)
+    r2_ms = timed_ms(lambda: distributed._forest_round2(
+        forest.trees, firsts, lam0, shard_n=forest.shard_n, n=n, **fkw),
+        reps, device)
+    merge_ms = timed_ms(lambda: distributed._forest_merge(outs, k, device),
+                        reps, device)
+    batch_ms = timed_ms(lambda: forest.query(q, k), 3, device)
+    k1_dev = [device_ms(lambda rec=rec: real_k1(**rec), reps, device,
+                        "p2h_sweep_kernel") for rec in recs]
+    log("mesh-forest-timing", card=repr(card), batch_ms=f"{batch_ms:.3f}",
+        round1_ms=f"{r1_ms:.3f}", round2_ms=f"{r2_ms:.3f}",
+        merge_ms=f"{merge_ms:.4f}",
+        round1_k1_device_ms=",".join(str(t) for t in k1_dev[:P]),
+        round2_k1_device_ms=",".join(str(t) for t in k1_dev[P:]),
+        k1_plain_ms=",".join(f"{t:.1f}" for t in plain),
+        one_tree_batch_ms=f"{frozen['batch_ms']:.3f}", reps=reps)
+    # served: the engine's "sharded" route at one slot of the whole batch
+    eng = P2HEngine(frozen["index"], sharded=forest, slot_size=B)
+    (ed, ei), k2s, recs, host_s = recorded(lambda: eng.query(q, k), device)
+    if k2s or len(recs) != 2 * P or eng.stats()["routes"] != {"sharded": 1}:
+        raise AssertionError(f"forest engine: {len(recs)} K1 launches, "
+                             f"routes {eng.stats()['routes']}")
+    warm = eng.query(q, k)
+    for tag, (ad, ai) in (("cold", (ed, ei)), ("warm", warm)):
+        if not np.array_equal(ad, bd):
+            raise AssertionError(f"forest engine {tag}: distances differ "
+                                 f"from the direct query's")
+        check(f"forest engine {tag} ids vs direct", ad, ai, bd, bi,
+              rtol=0.0, atol=0.0)
+    launches["12 mesh forest engine"] = {"p2h_sweep": len(recs),
+                                         "stacked_sweep": 0}
+    log("mesh-forest-serve", card=repr(card), slot_size=B,
+        qps=f"{B / host_s:.1f}", k1_per_batch=len(recs),
+        equals_direct=True, warm_equals_cold=True,
+        cache_hits=eng.cache.stats()["hits"])
+    return launches
 
 
 def main() -> int:

@@ -1,4 +1,5 @@
-"""The two-round lambda exchange over shard backends, on one device.
+"""Distributed P2HNNS: the two-round lambda exchange, over shard backends
+and over a device-sharded forest.
 
 The paper motivates Ball-Tree partly because "we can leverage it to split
 massive data sets into fine granularities for scalable and distributed
@@ -23,24 +24,32 @@ round-2 pruning only discards candidates whose lower bound exceeds an
 upper bound on the global k-th distance.
 
 Round 1 is the JAX package's: each shard's plain ``sweep_search`` beam
-(``Snapshot.query(method="beam")``), not a kernel call.
+(``Snapshot.query(method="beam")``), not a kernel call.  Under a serving
+mesh round 2's stacked launch runs at every mesh position over its block of
+segments (:func:`repro_torch.kernels.stacked_sweep._run_stacked`).
 
-Still to port (ROADMAP.md, queue 1, item 12): the frozen device-sharded
-forest ``ShardedP2HIndex``, its ``shard_map`` query and ``_pad_tree``;
-a ``mesh`` of more than one device raises ``NotImplementedError``.
+:class:`ShardedP2HIndex` is the frozen forest: one BC-Tree per mesh
+position (the paper's "split massive data sets into fine granularities for
+scalable and distributed P2HNNS"), queried by the same two rounds written
+as explicit phases between the positions (:func:`_sharded_query`).
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import threading
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import search
-from repro_torch.parallel.sharding import mesh_signature, require_one_device
+from repro_torch.core.balltree import FlatTree, build_tree, normalize_query
+from repro_torch.parallel.collectives import (all_gather, per_position, pmin,
+                                              psum)
+from repro_torch.parallel.sharding import _mesh_axis_size, mesh_signature
 
-__all__ = ["two_round_exchange", "warm_round1"]
+__all__ = ["ShardedP2HIndex", "two_round_exchange", "warm_round1"]
 
 # ---------------------------------------------------------------------------
 # Round-1 template registry.
@@ -171,23 +180,25 @@ def two_round_exchange(shards, queries, k: int = 1, *, frac1: float = 0.25,
     ``method="pallas"`` one sweep-kernel launch per segment).
 
     ``bq``/``split`` set the kernels' query block and CTAs per block on
-    round 2 (``None``: the device's defaults).  ``mesh`` is ``None`` or
-    one device; more raise (ROADMAP.md, queue 1, item 12).
+    round 2 (``None``: the device's defaults).  ``mesh`` (a
+    :class:`repro_torch.launch.mesh.DeviceMesh` with axis ``mesh_axis``)
+    runs the stacked round 2 at every position over its block of segments;
+    the answers are the same.
 
     ``deadline`` (a :class:`repro_torch.serve.resilience.Deadline`) and/or
     ``resilience`` (a :class:`repro_torch.serve.resilience.
     ShardSupervisor`) switch to the degraded-capable twin
     :func:`_resilient_exchange`.  Both ``None`` keeps this path.
     """
-    require_one_device(mesh)
     shards = tuple(shards)  # iterated once per round: reject generators
     sched = _schedule_kw(bq, split)
+    placed = dict(mesh=mesh, mesh_axis=mesh_axis)
     if resilience is not None or deadline is not None:
         return _resilient_exchange(
             shards, queries, k, frac1=frac1, method=method, frac=frac,
             return_info=return_info, stacked=stacked,
             probe_tiles=probe_tiles, probe_dtype=probe_dtype,
-            deadline=deadline, sup=resilience, sched=sched)
+            deadline=deadline, sup=resilience, sched=sched, placed=placed)
     q = np.ascontiguousarray(np.atleast_2d(np.asarray(queries, np.float32)))
     B = q.shape[0]
     device = _device_of(shards)
@@ -215,7 +226,8 @@ def two_round_exchange(shards, queries, k: int = 1, *, frac1: float = 0.25,
     base = "sweep" if method == "stacked" else method
     stk_merged, stk_kth, cnt_stk = _stacked_round2(
         shards, q, k, method=method, stacked=stacked, lam0=lam0,
-        probe_tiles=probe_tiles, probe_dtype=probe_dtype, sched=sched)
+        probe_tiles=probe_tiles, probe_dtype=probe_dtype, sched=sched,
+        placed=placed)
     if cnt_stk is not None:
         counters += cnt_stk
     if stk_merged is not None:
@@ -282,13 +294,15 @@ def _stackable(pairs, method, stacked, lam0):
 
 
 def _launch_round2(stackable, q, k, *, lam0, probe_tiles, probe_dtype=None,
-                   sched=None):
+                   sched=None, placed=None):
     """ONE stacked launch over the concatenated segment stacks of
     ``stackable`` (:func:`_stackable`) under ``lambda0``, with the
     in-launch merge and per-shard k-th reductions.  Returns ``((merged
     dists (B, k), merged global ids (B, k)), {shard index: per-shard k-th
-    (B,)}, counters)``.  An error of the launch itself is no one shard's:
-    it is raised as :class:`~repro_torch.serve.resilience.DeviceFault`."""
+    (B,)}, counters)``.  ``placed`` (``mesh``/``mesh_axis``) spreads the
+    launch over a serving mesh.  An error of the launch itself is no one
+    shard's: it is raised as
+    :class:`~repro_torch.serve.resilience.DeviceFault`."""
     from repro_torch.kernels.stacked_sweep import (concat_cached,
                                                    stacked_sweep_query)
     from repro_torch.serve.resilience import DeviceFault
@@ -303,7 +317,8 @@ def _launch_round2(stackable, q, k, *, lam0, probe_tiles, probe_dtype=None,
             combined, q, k, lambda_cap=lam0, probe_tiles=probe_tiles,
             probe_dtype=probe_dtype, probe_route="round2",
             shard_bounds=tuple(stk.num_segments for stk in stks),
-            use_ball=is_bc, use_cone=is_bc, **(sched or {}))
+            use_ball=is_bc, use_cone=is_bc, **(sched or {}),
+            **(placed or {}))
     except Exception as e:
         members = [si for si, _ in stackable]
         raise DeviceFault(f"round 2's stacked launch over shards {members} "
@@ -315,7 +330,7 @@ def _launch_round2(stackable, q, k, *, lam0, probe_tiles, probe_dtype=None,
 
 
 def _stacked_round2(shards, q, k, *, method, stacked, lam0, probe_tiles,
-                    probe_dtype=None, sched=None):
+                    probe_dtype=None, sched=None, placed=None):
     """Resolve and run the segment-parallel round 2 over ``shards``
     (:func:`_stackable`, then :func:`_launch_round2`) -- ``(None, {},
     None)`` when the sequential loop runs instead."""
@@ -323,12 +338,13 @@ def _stacked_round2(shards, q, k, *, method, stacked, lam0, probe_tiles,
     if not stackable:
         return None, {}, None
     return _launch_round2(stackable, q, k, lam0=lam0, probe_tiles=probe_tiles,
-                          probe_dtype=probe_dtype, sched=sched)
+                          probe_dtype=probe_dtype, sched=sched,
+                          placed=placed)
 
 
 def _resilient_exchange(shards, queries, k, *, frac1, method, frac,
                         return_info, stacked, probe_tiles, probe_dtype,
-                        deadline, sup, sched=None):
+                        deadline, sup, sched=None, placed=None):
     """Degraded-capable twin of the two-round exchange: every shard call
     runs through a :class:`~repro_torch.serve.resilience.ShardSupervisor`
     (per-call budget clamped by ``deadline``, circuit breakers, one hedged
@@ -436,7 +452,8 @@ def _resilient_exchange(shards, queries, k, *, frac1, method, frac,
                     return None, {}, None
                 return _launch_round2(plan, q, k, lam0=lam_stk,
                                       probe_tiles=probe_tiles,
-                                      probe_dtype=probe_dtype, sched=sched)
+                                      probe_dtype=probe_dtype, sched=sched,
+                                      placed=placed)
 
             ok, val, _why = sup.call(tuple(cand), stk_fn,
                                      deadline=deadline)
@@ -518,3 +535,210 @@ def _resilient_exchange(shards, queries, k, *, frac1, method, frac,
         "degraded": bool(missing),
     }
     return bd, bi, counters, info
+
+
+def _pad_tree(t: FlatTree, m: int, L: int, n0: int) -> FlatTree:
+    """Pad node arrays to ``m`` nodes and leaf/point arrays to ``L`` leaves
+    (a host tree; the JAX package's padding, value for value).
+
+    Pad nodes are zeros.  Pad leaves replicate leaf 0's geometry but hold
+    no valid points (``point_ids == -1``), so every search treats them as
+    empty tiles."""
+    a = t.to_numpy()
+    pn, pl = m - t.num_nodes, L - t.num_leaves
+
+    def padn(x):  # node arrays
+        return np.pad(x, [(0, pn)] + [(0, 0)] * (x.ndim - 1))
+
+    def padl(x):  # leaf arrays: replicate row 0 geometry
+        if pl == 0:
+            return x
+        return np.concatenate(
+            [x, np.broadcast_to(x[:1], (pl,) + x.shape[1:])], axis=0)
+
+    def padp(x, fill):  # point rows: empty tiles
+        return np.pad(x, [(0, pl * n0)] + [(0, 0)] * (x.ndim - 1),
+                      constant_values=fill)
+
+    arrays = {name: padn(a[name]) for name in (
+        "centers", "radii", "counts", "left", "right", "node_leaf")}
+    arrays.update({name: padl(a[name]) for name in (
+        "leaf_centers", "leaf_radii", "leaf_cnorm")})
+    for name, fill in (("points", 0.0), ("point_ids", -1), ("rx", -1.0),
+                       ("xcos", 0.0), ("xsin", 0.0)):
+        arrays[name] = padp(a[name], fill)
+    return FlatTree.from_numpy(arrays, dict(t.statics(), num_nodes=m,
+                                            num_leaves=L))
+
+
+@dataclasses.dataclass
+class ShardedP2HIndex:
+    """A BC-Tree forest sharded across a mesh: one tree per position along
+    ``axes``, each on that position's device.
+
+    The trees are padded to common node and leaf counts and one common
+    ``max_depth`` (:func:`_pad_tree`), as the JAX package stacks them with a
+    leading shard dimension; ``trees[s]`` is shard ``s``'s slice of that
+    stack.  Positions off ``axes`` (replicas, on a mesh with more axes)
+    hold no copy.
+    """
+
+    trees: tuple  # per-shard FlatTree, on its position's device
+    mesh: object  # repro_torch.launch.mesh.DeviceMesh
+    axes: tuple  # mesh axis name(s) the shard dim is mapped to
+    num_shards: int
+    shard_n: int  # points per shard (before leaf padding)
+    true_n: int  # database size before shard padding
+
+    @property
+    def device(self) -> torch.device:
+        """Where answers are merged: the first shard's device."""
+        return self.trees[0].device
+
+    @classmethod
+    def build(cls, data: np.ndarray, mesh, *,
+              axes: Sequence[str] | str = ("data",), n0: int = 256,
+              seed: int = 0, append_one: bool = True) -> "ShardedP2HIndex":
+        """Cut ``data`` into one contiguous shard per position along
+        ``axes`` (the last shard padded by repeating leading rows, which
+        the merge folds back by global id), build each shard's tree on the
+        host with seed ``seed + s``, pad them to common shapes and place
+        each on its position's device."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        S = _mesh_axis_size(mesh, axes)
+        if S < 1:
+            raise ValueError(f"axes {axes} are not all on the mesh "
+                             f"{mesh.axis_names}")
+        n = data.shape[0]
+        shard_n = -(-n // S)
+        # pad the database by repeating row 0; duplicates are de-duplicated
+        # at merge time by global id (pad ids map to id % n)
+        pad = S * shard_n - n
+        if pad:
+            data = np.concatenate([data, data[:pad]], axis=0)
+        trees = [build_tree(data[s * shard_n:(s + 1) * shard_n], n0=n0,
+                            seed=seed + s, append_one=append_one)
+                 for s in range(S)]
+        m = max(t.num_nodes for t in trees)
+        L = max(t.num_leaves for t in trees)
+        depth = max(t.max_depth for t in trees)
+        trees = tuple(
+            dataclasses.replace(_pad_tree(t, m, L, n0),
+                                max_depth=depth).to(dev)
+            for t, dev in zip(trees, mesh.axis_devices(axes)))
+        return cls(trees=trees, mesh=mesh, axes=axes, num_shards=S,
+                   shard_n=shard_n, true_n=n)
+
+    def query(self, queries, k: int = 1, *, frac1: float = 0.02,
+              normalize: bool = True, lambda_cap=None, engine=None):
+        """Exact distributed top-k with the two-round lambda exchange;
+        returns host ``(dists (B, k), global ids (B, k), SearchStats)``.
+
+        ``lambda_cap`` (optional, (B,)): externally known upper bounds on
+        each query's *global* k-th distance (a serving engine's lambda
+        cache); they tighten lambda0 in both rounds.
+
+        ``engine``: serve through a :class:`repro_torch.serve.P2HEngine`
+        whose ``sharded`` index is this one (micro-batching and the lambda
+        cache in front of the exchange); the engine derives the caps, so
+        passing ``lambda_cap`` too is an error, and the stats are this
+        call's counters on the ``"sharded"`` route.
+        """
+        if engine is not None:
+            if engine.sharded is not self:
+                raise ValueError("engine serves a different index")
+            if lambda_cap is not None:
+                raise ValueError(
+                    "lambda_cap is derived by the engine's cache; do not "
+                    "pass both engine= and lambda_cap=")
+            engine.flush()  # pending streaming work is not this call's
+            before = engine.route_counters("sharded")
+            bd, bi = engine.query(queries, k, normalize=normalize)
+            delta = engine.route_counters("sharded") - before
+            return bd, bi, search.SearchStats(delta)
+        q = np.atleast_2d(np.asarray(queries))
+        if normalize:
+            q = normalize_query(q)
+        q = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        if lambda_cap is None:
+            cap = torch.full((q.shape[0],), float("inf"), device=self.device)
+        else:
+            cap = torch.as_tensor(lambda_cap, dtype=torch.float32,
+                                  device=self.device).reshape(-1)
+        bd, bi, cnt = _sharded_query(self.trees, q, cap, mesh=self.mesh,
+                                     axes=self.axes, k=k, frac1=frac1,
+                                     shard_n=self.shard_n, n=self.true_n)
+        return (bd.cpu().numpy(), bi.cpu().numpy(),
+                search.SearchStats(cnt.cpu()))
+
+
+def _sweep(tree: FlatTree, q, k: int, **kw):
+    """One exact or budgeted sweep of one shard: the sweep kernel K1 on a
+    CUDA device, the plain ``sweep_search`` on the host."""
+    if tree.device.type == "cuda":
+        from repro_torch.kernels import ops
+
+        return ops.sweep_search_kernel(tree, q, k, **kw)
+    return search.sweep_search(tree, q, k, **kw)
+
+
+def _sharded_query(trees, queries, lambda_cap, *, mesh, axes, k: int,
+                   frac1: float, shard_n: int, n: int):
+    """The frozen forest's two rounds, as phases between the positions:
+
+      1. every position sweeps the ``frac1`` prefix of its tree's
+         preference order under ``lambda_cap``;
+      2. ``lambda0 = min(pmin(round-1 k-ths), lambda_cap)``;
+      3. every position sweeps its whole tree under ``lambda0``;
+      4. global ids ``s * shard_n + local id``, folded by ``% n`` (the
+         shard padding's repeated rows);
+      5. a gather of every position's top-k and one ``merge_topk``;
+      6. ``psum`` of both rounds' counters.
+
+    ``queries`` and ``lambda_cap`` are on the first position's device,
+    where the answer is merged."""
+    firsts, lam0 = _forest_round1(trees, queries, lambda_cap, mesh=mesh,
+                                  axes=axes, k=k, frac1=frac1)
+    outs = _forest_round2(trees, firsts, lam0, mesh=mesh, axes=axes, k=k,
+                          shard_n=shard_n, n=n)
+    return _forest_merge(outs, k, queries.device)
+
+
+def _forest_round1(trees, queries, lambda_cap, *, mesh, axes, k: int,
+                   frac1: float):
+    """Phases 1-2: every position's ``(queries, k-th, counters)`` of round
+    1, and ``lambda0`` on the queries' device."""
+    def round1(_s, dev, tree):
+        q, cap = queries.to(dev), lambda_cap.to(dev)
+        bd1, _, cnt1 = _sweep(tree, q, k, frac=frac1, lambda_cap=cap)
+        return q, bd1[:, k - 1].contiguous(), cnt1
+
+    firsts = per_position(mesh, axes, round1, trees)
+    lam0 = torch.minimum(pmin([f[1] for f in firsts],
+                              device=queries.device), lambda_cap)
+    return firsts, lam0
+
+
+def _forest_round2(trees, firsts, lam0, *, mesh, axes, k: int, shard_n: int,
+                   n: int):
+    """Phases 3-4: every position's ``(dists, global ids, counters of both
+    rounds)`` under ``lam0``."""
+    def round2(s, dev, tree, first):
+        q, _, cnt1 = first
+        bd, bi, cnt = _sweep(tree, q, k, lambda_cap=lam0.to(dev))
+        gid = torch.where(bi >= 0, (s * shard_n + bi.long()) % n, -1)
+        return bd, gid.to(torch.int32), cnt + cnt1
+
+    return per_position(mesh, axes, round2, trees, firsts)
+
+
+def _forest_merge(outs, k: int, device):
+    """Phases 5-6 on ``device``: the merged top-k and the summed
+    counters."""
+    all_d = all_gather([o[0] for o in outs], device=device)  # (S, B, k)
+    all_i = all_gather([o[1] for o in outs], device=device)
+    S, B = all_d.shape[:2]
+    # de-duplicate the shard padding's copies by global id, and merge
+    fd, fi = search.merge_topk(all_d.movedim(0, 1).reshape(B, S * k),
+                               all_i.movedim(0, 1).reshape(B, S * k), k)
+    return fd, fi, psum([o[2] for o in outs], device=device)

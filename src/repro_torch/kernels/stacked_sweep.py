@@ -36,6 +36,13 @@ kernel (or raise); host tensors run its plain version,
 a multiple of 4 (16-byte rows) for the kernel, where the JAX package pads
 to the TPU's lane width of 128; the plain version on the host keeps the
 true ``d``, as the JAX package's reference path does.
+
+On a serving mesh (``mesh=``, a :class:`repro_torch.launch.mesh.DeviceMesh`
+with more than one position along ``mesh_axis``) the program is
+:func:`_run_stacked` over one part per position: every position sweeps its
+own contiguous block of segments, and the probe hand-off and the final merge become gathers
+between the positions' launches.  The answers equal the single launch's
+bit for bit; only the skip counters may differ.
 """
 from __future__ import annotations
 
@@ -53,6 +60,8 @@ import torch.nn.functional as F
 from repro_torch.core import bounds
 from repro_torch.kernels import _build, p2h_scan, ref
 from repro_torch.launch.platform import ensure_full_precision
+from repro_torch.parallel.collectives import all_gather, per_position
+from repro_torch.parallel.sharding import mesh_signature
 
 __all__ = ["StackedLeaves", "stacked_sweep", "stacked_sweep_search",
            "stacked_sweep_query", "prepare_stacked_operands",
@@ -770,81 +779,27 @@ def _widened_probe_cap(cap, pd, k):
     return torch.minimum(cap, kth * (1.0 + 2.0 ** -16) + 1e-30)
 
 
-def _run_stacked(arrays, queries, lambda_cap, extra_d, extra_i, seg_shard,
-                 n_true, *, n0, d, k, frac, bq, split, use_ball, use_cone,
-                 use_kernel, probe_tiles, probe_dtype, num_shards, has_extra,
-                 sort_planes):
-    """Probe pass + main pass + cross-segment merge, on the stack's device.
+def _padded_extra(extra_d, extra_i, B0: int, Bp: int, k: int):
+    """The extra candidates (the delta scan's top-k) padded to the ``Bp``
+    rows of the query blocks, and the in-launch global top-k seed they
+    make (their ``k`` smallest values); ``(None, None, None)`` without."""
+    if extra_d is None:
+        return None, None, None
+    extra_d = F.pad(extra_d.to(torch.float32), (0, 0, 0, Bp - B0),
+                    value=_INF)
+    extra_i = F.pad(extra_i.to(torch.int32), (0, 0, 0, Bp - B0), value=-1)
+    gseed = (extra_d if extra_d.shape[1] == k
+             else torch.sort(extra_d, dim=1).values[:, :k]).contiguous()
+    return extra_d, extra_i, gseed
 
-    Pass A sweeps the first ``probe_tiles`` preference-ordered tiles of
-    every segment; its per-segment planes merge into ``lambda_probe``.
-    Pass B sweeps the remaining tiles under it, seeded with pass A's
-    per-segment top-k, so the two passes cover each visit list once.  A
-    quantised probe cannot seed pass B: pass B then rescans the whole
-    visit list cold under the widened cap.  The extra candidates (the
-    delta scan's top-k) seed the in-launch global top-k of both passes --
-    never pass A's planes, which pass B already holds in its seeds and
-    would count twice.  Bucket-pad segment rows are swept (force-skipped)
-    but never counted (``n_true``).
-    """
-    from repro_torch.core import search
 
-    arrays = dict(arrays)
-    qpts = arrays.pop("qpts", None)
-    qscale = arrays.pop("qscale", None)
-    stk = StackedLeaves(**arrays, uids=(), n0=n0, d=d)
-    ops, B0 = prepare_stacked_operands(
-        stk, queries, frac=frac, bq=bq, lambda_cap=lambda_cap,
-        lane_pad=use_kernel)
-    run = functools.partial(stacked_sweep, k=k, bq=bq, split=split,
-                            use_ball=use_ball, use_cone=use_cone)
-    visit = ops["visit"]
-    N, nqb, n_visit = visit.shape
-    true_row = torch.arange(N, device=visit.device) < n_true
-    p = max(0, min(probe_tiles, n_visit))
-    if has_extra:
-        Bp = ops["cap"].shape[0]
-        extra_d = F.pad(extra_d.to(torch.float32), (0, 0, 0, Bp - B0),
-                        value=_INF)
-        extra_i = F.pad(extra_i.to(torch.int32), (0, 0, 0, Bp - B0),
-                        value=-1)
-        gseed = (extra_d if extra_d.shape[1] == k
-                 else torch.sort(extra_d, dim=1).values[:, :k]).contiguous()
-    else:
-        extra_d = extra_i = gseed = None
-
-    def counted(sk):
-        return torch.sum(torch.where(true_row[:, None, None], sk, 0))
-
-    if probe_dtype != "f32" and p > 0:
-        qops, quant_kw = _quant_probe_operands(
-            probe_dtype, ops, qpts, qscale, arrays["leaf_radii"],
-            arrays["leaf_cnorm"], d)
-        da, ia, skips_a = run(**dict(qops, visit=visit[:, :, :p].contiguous()),
-                              global_seed=gseed, **quant_kw)
-        pd, _ = search.merge_topk_planes(da, ia, k)
-        cap_b = _widened_probe_cap(ops["cap"], pd, k)
-        bd, bi, skips = run(**dict(ops, cap=cap_b), global_seed=gseed)
-        probe_skips = counted(skips_a)
-    elif 0 < p < n_visit:
-        da, ia, skips_a = run(**dict(ops, visit=visit[:, :, :p].contiguous()),
-                              global_seed=gseed)
-        pd, _ = search.merge_topk_planes(da, ia, k)
-        cap_b = torch.minimum(ops["cap"], pd[:, k - 1:k])  # lambda_probe
-        bd, bi, skips_b = run(**dict(ops, visit=visit[:, :, p:].contiguous(),
-                                     cap=cap_b),
-                              seed_d=da, seed_i=ia, global_seed=gseed)
-        skips = skips_a + skips_b
-        probe_skips = counted(skips_a)
-    else:  # p == 0 (single pass) or p == n_visit (the probe is the sweep)
-        bd, bi, skips = run(**ops, global_seed=gseed)
-        probe_skips = (counted(skips) if p
-                       else torch.zeros((), dtype=torch.int64,
-                                        device=visit.device))
-    return _finish_stacked(bd, bi, skips, probe_skips, extra_d, extra_i,
-                           seg_shard, n_true, stk.n_leaves, k=k, B0=B0,
-                           num_shards=num_shards, sort_planes=sort_planes,
-                           nqb=nqb, n_visit=n_visit)
+def _gather_planes(outs, device) -> tuple:
+    """Each field of the positions' outputs in stack order on ``device``:
+    one position's as it is, more concatenated along the segment axis."""
+    if len(outs) == 1:
+        return tuple(outs[0])
+    return tuple(all_gather(list(xs), tiled=True, device=device)
+                 for xs in zip(*outs))
 
 
 def _finish_stacked(bd, bi, skips, probe_skips, extra_d, extra_i,
@@ -885,6 +840,122 @@ def _finish_stacked(bd, bi, skips, probe_skips, extra_d, extra_i,
     counters[2] = n_true * (nqb * n_visit) - total_skip
     counters[7] = total_skip
     return bd, bi, fd, fi, counters, seg_skips, shard_kth, probe_skips
+
+
+def _run_stacked(parts, queries, lambda_cap, extra_d, extra_i, seg_shard,
+                 n_true, n_leaves, *, mesh, mesh_axis, n0, d, k, frac, bq,
+                 split, use_ball, use_cone, use_kernel, probe_tiles,
+                 probe_dtype, num_shards, sort_planes):
+    """Probe pass + main pass + cross-segment merge.
+
+    Pass A sweeps the first ``probe_tiles`` preference-ordered tiles of
+    every segment; its per-segment planes merge into ``lambda_probe``.
+    Pass B sweeps the remaining tiles under it, seeded with pass A's
+    per-segment top-k, so the two passes cover each visit list once.  A
+    quantised probe cannot seed pass B: pass B then rescans the whole
+    visit list cold under the widened cap.  The extra candidates (the
+    delta scan's top-k) seed the in-launch global top-k of both passes --
+    never pass A's planes, which pass B already holds in its seeds and
+    would count twice.  Bucket-pad segment rows are swept (force-skipped)
+    but never counted (``n_true``).
+
+    ``parts`` holds one arrays dict per position.  With ``mesh=None`` it
+    is the single launch: one part on the queries' device, on the
+    caller's stream.  On a mesh, ``parts`` holds each position's
+    contiguous block of the (bucket- and position-count-padded) segment
+    axis, on its device (:func:`_placed_arrays`), and every position
+    sweeps its block over the whole query batch on its own stream.  The
+    probe hand-off then gathers every position's pass-A planes (tiled:
+    the blocks restore stack order) before the one merge, and the result
+    planes, skips and probe skips are gathered the same way before
+    :func:`_finish_stacked` runs once, on the queries' device.  Within a
+    position the launch still threads its global top-k from one segment
+    to the next; across positions the tightening travels through the
+    probe merge instead.  Every threshold stays a valid upper bound on the
+    global k-th, so the answers are the single launch's; only the skip
+    counters may differ.
+    """
+    from repro_torch.core import search
+
+    dev0 = queries.device
+    B0 = queries.shape[0]
+    Bp = _ceil_to(B0, bq)
+    nqb = Bp // bq
+    L = parts[0]["pts"].shape[1]
+    n_visit = max(1, min(L, int(round(frac * L))))
+    p = max(0, min(probe_tiles, n_visit))
+    quant = probe_dtype != "f32" and p > 0
+    two_pass = quant or 0 < p < n_visit
+    cap0 = (None if lambda_cap is None
+            else torch.as_tensor(lambda_cap, dtype=torch.float32,
+                                 device=dev0).reshape(-1))
+    extra_d, extra_i, gseed = _padded_extra(extra_d, extra_i, B0, Bp, k)
+    run = functools.partial(stacked_sweep, k=k, bq=bq, split=split,
+                            use_ball=use_ball, use_cone=use_cone)
+
+    def each(fn, per):
+        if mesh is None:  # the single launch: no stream switch
+            return [fn(0, dev0, per[0])]
+        return per_position(mesh, mesh_axis, fn, per)
+
+    def pass_a(_i, dev, arrs):
+        arrs = dict(arrs)
+        qpts = arrs.pop("qpts", None)
+        qscale = arrs.pop("qscale", None)
+        stk_l = StackedLeaves(**arrs, uids=(), n0=n0, d=d)
+        ops, _ = prepare_stacked_operands(
+            stk_l, queries.to(dev), frac=frac, bq=bq,
+            lambda_cap=None if cap0 is None else cap0.to(dev),
+            lane_pad=use_kernel)
+        gs = None if gseed is None else gseed.to(dev)
+        visit = ops["visit"]
+        if quant:
+            qops, quant_kw = _quant_probe_operands(
+                probe_dtype, ops, qpts, qscale, arrs["leaf_radii"],
+                arrs["leaf_cnorm"], d)
+            out = run(**dict(qops, visit=visit[:, :, :p].contiguous()),
+                      global_seed=gs, **quant_kw)
+        elif two_pass:
+            out = run(**dict(ops, visit=visit[:, :, :p].contiguous()),
+                      global_seed=gs)
+        else:  # p == 0 (one pass) or p == n_visit (the probe is the sweep)
+            out = run(**ops, global_seed=gs)
+        return ops, gs, out
+
+    firsts = each(pass_a, parts)
+    if two_pass:
+        # the lambda exchange: every position's probe planes meet here, and
+        # the merged k-th is the bound pass B sweeps under
+        da, ia = _gather_planes([o[2][:2] for o in firsts], dev0)
+        pd, _ = search.merge_topk_planes(da, ia, k)
+        entry = firsts[0][0]["cap"].to(dev0)
+        cap_b = (_widened_probe_cap(entry, pd, k) if quant
+                 else torch.minimum(entry, pd[:, k - 1:k]))
+
+        def pass_b(_i, dev, first):
+            ops, gs, (da, ia, sk_a) = first
+            cb = cap_b.to(dev)
+            if quant:  # widened values never seed: a cold f32 rescan
+                bd, bi, sk = run(**dict(ops, cap=cb), global_seed=gs)
+            else:
+                bd, bi, sk_b = run(
+                    **dict(ops, visit=ops["visit"][:, :, p:].contiguous(),
+                           cap=cb),
+                    seed_d=da, seed_i=ia, global_seed=gs)
+                sk = sk_a + sk_b
+            return bd, bi, sk, sk_a
+
+        outs = each(pass_b, firsts)
+    else:
+        outs = [(bd, bi, sk, sk) for _, _, (bd, bi, sk) in firsts]
+    bd, bi, skips, psk = _gather_planes(outs, dev0)
+    true_row = torch.arange(bd.shape[0], device=dev0) < n_true
+    probe_skips = (torch.sum(torch.where(true_row[:, None, None], psk, 0))
+                   if p else torch.zeros((), dtype=torch.int64, device=dev0))
+    return _finish_stacked(bd, bi, skips, probe_skips, extra_d, extra_i,
+                           seg_shard, n_true, n_leaves.to(dev0), k=k, B0=B0,
+                           num_shards=num_shards, sort_planes=sort_planes,
+                           nqb=nqb, n_visit=n_visit)
 
 
 def _n_visit(stk: StackedLeaves, frac: float) -> int:
@@ -934,8 +1005,9 @@ def _bucketed_arrays(stk: StackedLeaves, *, use_kernel: bool,
     (kept through tombstone republishes), the ids-derived pads under plain
     keys.  ``use_kernel`` takes the points padded to 4 columns.
     ``probe_dtype`` != "f32" adds the quantised plane (``qpts``) and the
-    int8 tile scales (``qscale``, pad 1.0).  Returns ``(arrays, padded
-    segment count)``."""
+    int8 tile scales (``qscale``, pad 1.0).  ``multiple`` rounds the
+    bucket up to whole blocks of segments per mesh position.  Returns
+    ``(arrays, padded segment count)``."""
     N = stk.num_segments
     Np = _bucket_segments(N)
     if multiple > 1:
@@ -982,6 +1054,50 @@ def _bucketed_arrays(stk: StackedLeaves, *, use_kernel: bool,
                     n_leaves=_pad_rows(stk.n_leaves, pad, 0))
         stk._derived[lkey] = live
     return {**geom, **live, **quant}, Np
+
+
+#: arrays-dict fields whose placement rides tombstone republishes (tile
+#: geometry; ``geom:`` keys) and the ids planes that deletes move
+_GEOM_FIELDS = ("pts", "rx", "xc", "xs", "leaf_centers", "leaf_radii",
+                "leaf_cnorm")
+_IDS_FIELDS = ("ids", "valid", "n_leaves")
+
+
+def _placed_arrays(stk: StackedLeaves, arrays: dict, Np: int, mesh,
+                   axis: str, use_kernel: bool,
+                   probe_dtype: str = "f32") -> list:
+    """``arrays`` cut into one dict per position along ``axis``: position
+    ``i`` holds segments ``[i * Np / D, (i + 1) * Np / D)`` on its device.
+    On the stack's own device a block is a view, not a copy.
+
+    Memoised in ``stk._derived`` by the mesh's topology signature, so a
+    copy to another device is paid once per stack; geometry entries ride
+    tombstone republishes (``geom:`` keys), the ids planes are placed
+    again when deletes move them."""
+    sig = mesh_signature(mesh)
+    tag = "lane" if use_kernel else "raw"
+    devices = mesh.axis_devices(axis)
+    per = Np // len(devices)
+
+    def put(names):
+        return {f: [arrays[f][i * per:(i + 1) * per].to(dev)
+                    for i, dev in enumerate(devices)]
+                for f in names if f in arrays}
+
+    groups = [(f"geom:mesh:{sig}:{axis}:{Np}:{tag}", _GEOM_FIELDS),
+              (f"mesh:{sig}:{axis}:{Np}:ids", _IDS_FIELDS)]
+    if probe_dtype != "f32":  # the quantised plane is geometry too
+        groups.append((f"geom:quant:mesh:{sig}:{axis}:{Np}:{probe_dtype}:"
+                       f"{tag}", ("qpts", "qscale")))
+    placed = {}
+    for key, names in groups:
+        hit = stk._derived.get(key)
+        if hit is None:
+            hit = put(names)
+            stk._derived[key] = hit
+        placed.update(hit)
+    return [{f: v[i] for f, v in placed.items()}
+            for i in range(len(devices))]
 
 
 # ----------------------------------------------------------------------
@@ -1055,8 +1171,11 @@ def _mesh_axis_size(mesh, mesh_axis: str) -> int:
     return int(dict(mesh.shape).get(mesh_axis, 0))
 
 
-def _placement(device: torch.device) -> tuple:
-    """The single-program placement a signature was recorded against."""
+def _placement(device: torch.device, mesh=None) -> tuple:
+    """The placement a signature was recorded against: the mesh's topology
+    signature, or the single program's device type and count."""
+    if mesh is not None:
+        return mesh_signature(mesh)
     count = torch.cuda.device_count() if device.type == "cuda" else 1
     return ("default", device.type, count)
 
@@ -1066,15 +1185,17 @@ def _signature(stk: StackedLeaves, template: tuple):
     ``stk``: the template's knobs resolved against the stack's grid."""
     (B, k, frac, bq, split, use_ball, use_cone, use_kernel, interpret,
      probe_tiles, probe_route, probe_dtype, num_shards, has_extra, extra_k,
-     has_cap, sort_planes, _mesh, mesh_axis) = template
+     has_cap, sort_planes, mesh, mesh_axis) = template
     p = resolve_probe_tiles(probe_tiles, _n_visit(stk, frac),
                             route=probe_route)
     pdt = resolve_probe_dtype(probe_dtype, p)
     Np = _bucket_segments(stk.num_segments)
+    if mesh is not None:  # whole blocks of segments per position
+        Np = _ceil_to(Np, _mesh_axis_size(mesh, mesh_axis))
     sig = (Np, stk.num_tiles, stk.n0, stk.d, B, k, frac, bq, split,
            use_ball, use_cone, use_kernel, interpret, p, pdt, num_shards,
-           has_extra, extra_k, has_cap, sort_planes, _placement(stk.device),
-           mesh_axis)
+           has_extra, extra_k, has_cap, sort_planes,
+           _placement(stk.device, mesh), mesh_axis)
     return sig, Np, p, pdt
 
 
@@ -1083,10 +1204,14 @@ def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq, split,
                       probe_route="snapshot", probe_dtype=None,
                       extra_d=None, extra_i=None, shard_bounds=None,
                       sort_planes=True, mesh=None, mesh_axis="shard"):
-    if _mesh_axis_size(mesh, mesh_axis) > 1:
-        raise NotImplementedError(
-            "a stacked launch across several devices is not ported yet "
-            "(ROADMAP.md, queue 1, item 12: multi-device)")
+    D = _mesh_axis_size(mesh, mesh_axis)
+    if D <= 1:
+        mesh = None  # a one-position (or axis-less) mesh IS the single launch
+    else:
+        types = {dev.type for dev in mesh.axis_devices(mesh_axis)}
+        if types != {stk.device.type}:
+            raise ValueError(f"mesh positions on {sorted(types)} for a stack "
+                             f"on {stk.device}")
     use_kernel = stk.device.type == "cuda"  # the device decides
     N = stk.num_segments
     bounds_ = tuple(int(x) for x in shard_bounds) if shard_bounds else ()
@@ -1102,10 +1227,11 @@ def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq, split,
                 bool(use_cone), use_kernel, False,
                 None if probe_tiles is None else int(probe_tiles),
                 probe_route, probe_dtype, num_shards, has_extra, extra_k,
-                lambda_cap is not None, bool(sort_planes), None, mesh_axis)
+                lambda_cap is not None, bool(sort_planes), mesh, mesh_axis)
     sig, Np, p, pdt = _signature(stk, template)
     _record_sig(sig, template, False)
     arrays, Np = _bucketed_arrays(stk, use_kernel=use_kernel,
+                                  multiple=D if mesh is not None else 1,
                                   probe_dtype=pdt)
     seg_shard = torch.full((Np,), -1, dtype=torch.int32)
     if bounds_:
@@ -1115,15 +1241,16 @@ def _call_run_stacked(stk: StackedLeaves, queries, k, *, frac, bq, split,
         seg_shard[:N] = torch.repeat_interleave(
             torch.arange(num_shards, dtype=torch.int32),
             torch.tensor(bounds_))
-    out = _run_stacked(arrays, q2, lambda_cap,
-                       extra_d if has_extra else None,
-                       extra_i if has_extra else None,
-                       seg_shard.to(stk.device), N,
-                       n0=stk.n0, d=stk.d, k=k, frac=frac, bq=bq,
-                       split=split, use_ball=use_ball, use_cone=use_cone,
-                       use_kernel=use_kernel, probe_tiles=p,
-                       probe_dtype=pdt, num_shards=num_shards,
-                       has_extra=has_extra, sort_planes=sort_planes)
+    statics = dict(n0=stk.n0, d=stk.d, k=k, frac=frac, bq=bq, split=split,
+                   use_ball=use_ball, use_cone=use_cone,
+                   use_kernel=use_kernel, probe_tiles=p, probe_dtype=pdt,
+                   num_shards=num_shards, sort_planes=sort_planes)
+    parts = ([arrays] if mesh is None
+             else _placed_arrays(stk, arrays, Np, mesh, mesh_axis,
+                                 use_kernel, probe_dtype=pdt))
+    out = _run_stacked(parts, q2, lambda_cap, extra_d, extra_i,
+                       seg_shard.to(stk.device), N, arrays["n_leaves"],
+                       mesh=mesh, mesh_axis=mesh_axis, **statics)
     if Np != N:  # per-segment outputs slice back to the true rows
         bd, bi, fd, fi, counters, seg_skips, shard_kth, probe_skips = out
         out = (bd[:N], bi[:N], fd, fi, counters, seg_skips[:N],
@@ -1198,8 +1325,11 @@ def stacked_sweep_query(stk: StackedLeaves, queries, k: int = 1, *,
     ``info``: ``seg_skips`` (N,), ``forced_skips`` (N,) -- the pad/dead
     tiles each segment's visit lists force-skip -- ``shard_kth``,
     ``probe`` (resolved width, scanned, skipped, dtype) and
-    ``mesh_devices`` (1: one device).  A ``mesh`` of more than one device
-    raises ``NotImplementedError``.
+    ``mesh_devices``, the positions the launch spanned (1: the single
+    launch).  ``mesh`` (a :class:`repro_torch.launch.mesh.DeviceMesh`)
+    with more than one position along ``mesh_axis`` runs
+    :func:`_run_stacked` at every position: the same answers, one launch
+    per position and pass.
     """
     out, p, pdt, bq = _call_run_stacked(
         stk, queries, k, frac=frac, bq=bq, split=split, use_ball=use_ball,

@@ -1,64 +1,55 @@
-"""Serving placement on one device: the topology signature and the mesh
-rule.
+"""Serving placement: the topology signature that keys the warm-template
+registries, and the size of a serving mesh.
 
 The JAX package keys its warm-template registries by
 ``mesh_signature()`` -- backend and visible device count off-mesh, the
-mesh's axes and devices on one -- so a template recorded on one topology
-never replays on another.  The port serves on one device, so the
-signature is a one-device stand-in: ``("default", "cuda" | "cpu", 1)``,
-keyed as the stacked registry keys its signatures
-(:func:`repro_torch.kernels.stacked_sweep._placement`).
+mesh's axes, sizes, devices and platform on one -- so a template recorded
+on one topology never replays on another.  The port keys its registries
+the same way, over a :class:`repro_torch.launch.mesh.DeviceMesh`.
 
-A serving "mesh" here is ``None`` or one device (a ``torch.device``, a
-device string, or a sequence holding one).  Anything spanning more
-devices is refused with ``NotImplementedError``:
-the multi-device mesh, ``shard_map_compat`` and the LM sharding rules are
-ROADMAP.md, queue 1, items 12 and 15.
+The LM half of the JAX module (``logical_to_spec``, ``shard``,
+``resolve_param_specs``, ``pad_vocab``, the fallback log) is ROADMAP.md,
+queue 1, item 15.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["mesh_signature", "mesh_devices", "require_one_device"]
-
-MULTI_DEVICE_LATER = ("a serving mesh of more than one device is not ported "
-                      "yet (ROADMAP.md, queue 1, item 12: multi-device)")
-
-
-def _devices(mesh) -> list:
-    """The devices a mesh value names: one device, or a (nested) sequence
-    of them, flattened."""
-    if isinstance(mesh, (list, tuple)):
-        return [dev for item in mesh for dev in _devices(item)]
-    return [torch.device(mesh)]
+__all__ = ["mesh_signature", "mesh_devices"]
 
 
 def mesh_devices(mesh) -> int:
-    """Device count of a serving mesh (1 for ``None`` or one device)."""
-    if mesh is None:
-        return 1
-    return max(1, len(_devices(mesh)))
-
-
-def require_one_device(mesh):
-    """``None`` or the one ``torch.device`` ``mesh`` names; raises
-    ``NotImplementedError`` (naming item 12) for more than one device."""
-    if mesh is None:
-        return None
-    devs = _devices(mesh)
-    if len(devs) != 1:
-        raise NotImplementedError(MULTI_DEVICE_LATER)
-    return devs[0]
+    """Positions of a serving mesh (1 for ``None``)."""
+    return 1 if mesh is None else mesh.size
 
 
 def mesh_signature(mesh=None) -> tuple:
     """Hashable topology signature for the warm-template registries.
 
     ``None`` is the default single-program placement: ``("default",
-    "cuda", 1)`` where a CUDA device is visible, else ``("default", "cpu",
-    1)``.  One device is ``("device", type, index)``; more raise (item
-    12)."""
+    "cuda", count)`` with the visible CUDA device count, else ``("default",
+    "cpu", 1)``.  A mesh is ``("mesh", axis names, sizes, devices in order,
+    platform)``."""
     if mesh is None:
-        return ("default", "cuda" if torch.cuda.is_available() else "cpu", 1)
-    dev = require_one_device(mesh)
-    return ("device", dev.type, dev.index)
+        if torch.cuda.is_available():
+            return ("default", "cuda", torch.cuda.device_count())
+        return ("default", "cpu", 1)
+    devs = tuple(str(d) for d in mesh.devices.flat)
+    return ("mesh", tuple(mesh.axis_names),
+            tuple(int(mesh.shape[a]) for a in mesh.axis_names), devs,
+            mesh.devices.flat[0].type)
+
+
+def _mesh_axis_size(mesh, axes) -> int:
+    """Positions along ``axes`` (a name or a tuple of names): 1 for no
+    axes, 0 when an axis is not on the mesh."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    size = 1
+    for a in axes:
+        if a not in mesh.shape:
+            return 0  # axis not present on this mesh
+        size *= mesh.shape[a]
+    return size

@@ -23,13 +23,12 @@ device the batched exact route is ``"pallas"``, the CUDA sweep kernel
 (``kernels/csrc/p2h_sweep.cu``); a mutable snapshot's ``"stacked"`` route
 launches the stacked kernel (``kernels/csrc/stacked_sweep.cu``), and so
 does round 2 of a sharded snapshot's exchange, once for every shard's
-segments.  The route keeps the JAX package's name ``"pallas"`` in
-``Route.method`` and ``stats()["routes"]``; ``method="kernel"`` forces the
-same route.
-
-Not ported yet (ROADMAP.md, queue 1, item 12), each refused with
-``NotImplementedError``: the frozen device-sharded forest (``sharded=``,
-the ``"sharded"`` route) and a serving mesh of more than one device.
+segments (once per mesh position and pass under a serving mesh).  The
+route keeps the JAX package's name ``"pallas"`` in ``Route.method`` and
+``stats()["routes"]``; ``method="kernel"`` forces the same route.  A
+frozen index may come with its device-sharded forest (``sharded=``, a
+:class:`repro_torch.core.distributed.ShardedP2HIndex`): exact batches then
+take the ``"sharded"`` route, the forest's two-round exchange.
 """
 from __future__ import annotations
 
@@ -42,7 +41,7 @@ import torch
 
 from repro_torch.core import search
 from repro_torch.core.balltree import normalize_query
-from repro_torch.parallel.sharding import MULTI_DEVICE_LATER, mesh_devices
+from repro_torch.parallel.sharding import mesh_devices
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.serve.dispatch import HOST_SMALL_BATCH, DispatchPolicy, Route
 from repro_torch.serve.lambda_cache import LambdaCache
@@ -55,11 +54,6 @@ __all__ = ["P2HEngine"]
 #: result metadata for a batch served with nothing missing
 _META_COMPLETE = {"complete": True, "degraded": False, "shed": False,
                   "missing_shards": ()}
-
-_SHARDED_LATER = ("the device-sharded forest (ShardedP2HIndex: sharded= and "
-                  "the 'sharded' route) is not ported yet (ROADMAP.md, queue "
-                  "1, item 12: multi-device)")
-
 
 class P2HEngine:
     """Serving front-end for P2HNNS query traffic.
@@ -95,10 +89,11 @@ class P2HEngine:
         from repro_torch.stream.mutable import MutableP2HIndex
         from repro_torch.stream.sharded import ShardedMutableP2HIndex
 
-        if sharded is not None:
-            raise NotImplementedError(_SHARDED_LATER)
         self._sharded_mutable = isinstance(index, ShardedMutableP2HIndex)
         if isinstance(index, MutableP2HIndex) or self._sharded_mutable:
+            if sharded is not None:
+                raise ValueError("sharded= serves beside a frozen P2HIndex, "
+                                 "not a mutable index")
             # update-aware serving: every micro-batch pins one snapshot (an
             # epoch *vector* pin for the sharded index), lambda-cache
             # entries are epoch-tagged (see lambda_cache)
@@ -124,6 +119,7 @@ class P2HEngine:
             raise TypeError(f"P2HEngine serves a P2HIndex, a "
                             f"MutableP2HIndex or a ShardedMutableP2HIndex, "
                             f"not {type(index).__name__}")
+        self.sharded = sharded
         self.device = torch.device(device)
         self.policy = self.resolve_policy(policy or DispatchPolicy(),
                                           self.device)
@@ -149,6 +145,10 @@ class P2HEngine:
         # across it is the lambda cache's epoch-vector length check
         self._router_version = None
         self._router_transitions = 0
+        # the serving mesh the last multi-position snapshot carried (1:
+        # every batch ran as one program); the mesh itself travels
+        # snapshot -> exchange -> stacked launch
+        self._mesh_devices = 1
 
     @staticmethod
     def resolve_policy(policy: DispatchPolicy, device) -> DispatchPolicy:
@@ -275,8 +275,6 @@ class P2HEngine:
             return
         if method == "kernel":
             method = "pallas"
-        if method == "sharded":
-            raise NotImplementedError(_SHARDED_LATER)
         # resilient exchange iff this batch carries a deadline or the
         # engine was armed -- otherwise the plain path, bit for bit
         resilient = (self._sharded_mutable
@@ -289,8 +287,6 @@ class P2HEngine:
         # pin one consistent view for the whole micro-batch: concurrent
         # inserts/deletes publish new snapshots, this batch never sees them
         snap = self.mutable.snapshot() if self.mutable is not None else None
-        if mesh_devices(getattr(snap, "mesh", None)) > 1:
-            raise NotImplementedError(MULTI_DEVICE_LATER)
         if snap is not None and self._sharded_mutable:
             rv = getattr(snap, "router_version", 0)
             if self._router_version is not None \
@@ -312,16 +308,21 @@ class P2HEngine:
         else:
             stackable, delta_frac, tombstone_frac = 0, 0.0, 0.0
             density = 1.0
+        n_mesh = mesh_devices(getattr(snap, "mesh", None))
+        if n_mesh > 1:
+            self._mesh_devices = n_mesh
         route = (Route(method, frac=self.policy.frac_for_recall(
                      mb.recall_target) if method == "beam" else 1.0,
                      reason="forced")
                  if method is not None else
                  self.policy.route(mb.occupancy, mb.k, mb.recall_target,
+                                   sharded=self.sharded is not None,
                                    segments=fanout,
                                    stackable=stackable,
                                    delta_frac=delta_frac,
                                    tombstone_frac=tombstone_frac,
-                                   tile_density=density))
+                                   tile_density=density,
+                                   mesh_devices=n_mesh))
         # warm start: valid caps only for exact routes (a cap bounds the
         # *exact* k-th distance; applying it to a budgeted beam could prune
         # candidates the direct beam would have returned) ... and never for
@@ -408,8 +409,16 @@ class P2HEngine:
         self._queries_served += mb.occupancy
 
     def _run_backend(self, route: Route, q: np.ndarray, k: int, caps):
-        """One backend call on the frozen tree: the queries go to the
-        tree's device once, the answers and counters come back once."""
+        """One backend call on the frozen index (the forest's exchange on
+        the ``"sharded"`` route): the queries go to the device once, the
+        answers and counters come back once."""
+        if route.method == "sharded":
+            if self.sharded is None:
+                raise ValueError("the 'sharded' route needs sharded=")
+            bd, bi, st = self.sharded.query(q, k, normalize=False,
+                                            lambda_cap=caps)
+            return bd, bi, np.array([st[n] for n in search._COUNTER_NAMES],
+                                    np.int64)
         tree = self.index.tree
         is_bc = self.index.variant == "bc"
         common = dict(use_ball=is_bc, use_cone=is_bc)
@@ -470,6 +479,8 @@ class P2HEngine:
         if self._router_version is not None:
             out["router_version"] = self._router_version
             out["router_transitions"] = self._router_transitions
+        if self._mesh_devices > 1:
+            out["mesh_devices"] = self._mesh_devices
         admission = getattr(self.mutable, "admission_stats", None)
         if callable(admission):
             # write-admission counters (seals/stalls/pending) from the

@@ -21,8 +21,9 @@ BC-Tree with inline or background compaction and atomic snapshots.
     JAX package's byte format.
 ``ShardedMutableP2HIndex`` / ``HashRouter`` (sharded.py)
     Independent mutable shards behind a gid router, queried through the
-    two-round lambda exchange on one device (``ShardedSnapshot``, an
-    epoch-vector pin); per-shard logs and checkpoints under one manifest.
+    two-round lambda exchange (``ShardedSnapshot``, an epoch-vector pin;
+    round 2 spread over a serving mesh once ``set_mesh`` sets one);
+    per-shard logs and checkpoints under one manifest.
 ``VersionedRouter`` / ``MigrationJournal`` (resharding.py)
     Live ``split_shard`` / ``merge_shards`` under a journaled slot map.
 """

@@ -67,8 +67,8 @@ the shard count.
 Every shard lives on the index's ``device`` (the CUDA card unless
 ``"cpu"`` is asked for).  The manifest, router, journal and log files are
 the JAX package's formats: either package recovers the other's
-directories.  The serving mesh is ``None`` or one device; more devices
-are ROADMAP.md, queue 1, item 12.
+directories.  A serving mesh (:meth:`ShardedMutableP2HIndex.set_mesh`)
+spreads round 2's stacked launch over its positions.
 """
 from __future__ import annotations
 
@@ -84,8 +84,7 @@ import numpy as np
 from repro_torch.core import search
 from repro_torch.core.balltree import normalize_query
 from repro_torch.launch.platform import resolve_device
-from repro_torch.parallel.sharding import (mesh_devices, mesh_signature,
-                                           require_one_device)
+from repro_torch.parallel.sharding import mesh_devices, mesh_signature
 from repro_torch.stream.compaction import CompactionPolicy
 from repro_torch.stream.mutable import MutableP2HIndex, query_via_engine
 from repro_torch.stream.resharding import (DEFAULT_SLOTS, MigrationJournal,
@@ -199,7 +198,7 @@ class ShardedMutableP2HIndex:
         #: read-path supervisor (see :meth:`set_resilience`); None =
         #: historical fail-fast exchange
         self._resilience = None
-        #: serving mesh (see :meth:`set_mesh`): None or one device.
+        #: serving mesh (see :meth:`set_mesh`); None = one program.
         #: Snapshots pin the reference at snapshot() time, so in-flight
         #: queries are unaffected by a later set_mesh.
         self._mesh = None
@@ -403,16 +402,19 @@ class ShardedMutableP2HIndex:
         return False
 
     def set_mesh(self, mesh, *, axis: str = "shard") -> None:
-        """Attach (or detach, ``mesh=None``) the serving mesh: ``None`` or
-        one device, the one the shards live on.  Every snapshot pinned
-        after this carries it; answers are the same with or without one.
-        A mesh of more than one device raises ``NotImplementedError``
-        (ROADMAP.md, queue 1, item 12: multi-device)."""
-        dev = require_one_device(mesh)
-        if dev is not None and (dev.type != self.device.type or (
-                dev.index is not None and dev.index != self.device.index)):
-            raise ValueError(f"mesh device {dev} is not the index's "
-                             f"device {self.device}")
+        """Attach (or detach, ``mesh=None``) the serving mesh, a
+        :class:`repro_torch.launch.mesh.DeviceMesh`
+        (:func:`repro_torch.launch.mesh.make_serving_mesh`).  Every
+        snapshot pinned after this carries it, so round 2's stacked launch
+        runs at each position along ``axis`` over its block of segments;
+        answers are bit-identical with or without one.  Every position
+        must be a device of the index's type (``ValueError`` otherwise):
+        a mesh never moves the work off the card, nor onto it."""
+        if mesh is not None:
+            kinds = {dev.type for dev in mesh.devices.flat}
+            if kinds != {self.device.type}:
+                raise ValueError(f"mesh devices {sorted(kinds)} for an "
+                                 f"index on {self.device}")
         self._mesh = mesh
         self._mesh_axis = str(axis)
 

@@ -264,8 +264,10 @@ class Snapshot:
         forces it, ``False`` forbids it; ``method="stacked"`` is
         ``stacked=True``.  ``probe_tiles`` is the probe-pass width (None =
         default; 0 = one pass) and ``probe_dtype`` its precision
-        ("f32"/"bf16"/"int8"; answers are exact either way).  ``mesh``
-        with more than one device raises ``NotImplementedError``.  ``bq``
+        ("f32"/"bf16"/"int8"; answers are exact either way).  ``mesh`` (a
+        :class:`repro_torch.launch.mesh.DeviceMesh`) spreads the stacked
+        launch's segment axis over ``mesh_axis``; only the stacked route
+        takes it, and the answers are the same.  ``bq``
         and ``split`` set the kernels' query block and CTAs per block, on
         the stacked launch and on the sequential ``pallas``/``kernel`` walk
         (``None``: the device's defaults, 64 and as many CTAs as fill the
@@ -410,8 +412,9 @@ class ShardedSnapshot:
     #: check already invalidates caps across a resharding; this field
     #: makes the placement generation observable to the serving layer.
     router_version: int = 0
-    #: serving mesh: ``None`` or one device (more is ROADMAP.md, queue 1,
-    #: item 12).  Placement, not state -- excluded from identity.
+    #: serving mesh (:func:`repro_torch.launch.mesh.make_serving_mesh`)
+    #: that round 2's stacked launch spreads over.  Placement, not state --
+    #: excluded from identity.
     mesh: Any = dataclasses.field(default=None, compare=False)
     mesh_axis: str = dataclasses.field(default="shard", compare=False)
 

@@ -773,3 +773,57 @@ def test_hash_baselines_on_card_match_host(cuda, kind, budget):
     mag = dists64(host.data, qn, torch.from_numpy(hi).long())[1]
     tol = np.maximum(6 * 2.0 ** -24 * mag.amax(1).numpy(), 1e-6)
     assert_topk_close(cd, ci, hd, hi, rtol=1e-5, atol=tol)
+
+
+# -------------------------------------------------------------- the mesh
+@pytest.mark.parametrize("kw", [dict(), dict(probe_tiles=0),
+                                dict(probe_dtype="bf16"),
+                                dict(probe_dtype="int8")])
+def test_mutable_index_on_a_card_mesh_equals_one_launch(cuda, kw):
+    """The card named at 4 mesh positions, a stream each: the stacked route
+    launches K2 once a position and pass and answers bit for bit as the
+    one launch."""
+    from repro_torch.launch.mesh import make_mesh
+
+    m = _mutable(cuda)
+    mesh = make_mesh((4,), ("shard",), devices=[cuda] * 4)
+    q = np.random.default_rng(7).normal(size=(19, 17)).astype(np.float32)
+    before = tss.LAUNCHES
+    d0, i0 = m.query(q, 10, method="stacked", **kw)
+    one = tss.LAUNCHES - before
+    d1, i1 = m.query(q, 10, method="stacked", mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES - before - one == 4 * one
+    assert np.array_equal(d0, d1) and np.array_equal(i0, i1)
+
+
+def test_sharded_forest_on_a_card_mesh(cuda):
+    """One tree a position on the card: K1 at every position in both
+    rounds (8 launches), the host forest's answers within the tie rule, the
+    oracle at float64, and the engine's ``"sharded"`` route bit for bit
+    the direct query."""
+    from repro_torch.core.distributed import ShardedP2HIndex
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import P2HEngine
+
+    x, q = make_p2h_dataset(4000, 16, kind="planted", n_queries=37, seed=3)
+    idx = ShardedP2HIndex.build(x, make_mesh((4,), ("data",),
+                                             devices=[cuda] * 4), n0=64)
+    before = p2h_scan.p2h_sweep.launches
+    bd, bi, _ = idx.query(q, 10)
+    torch.cuda.synchronize()
+    assert p2h_scan.p2h_sweep.launches == before + 8
+    host = ShardedP2HIndex.build(x, make_mesh((4,), ("data",),
+                                              devices=["cpu"] * 4), n0=64)
+    hd, hi, _ = host.query(q, 10)
+    assert_topk_parity(bd, bi, hd, hi)
+    pts = append_ones(x)
+    qn = normalize_query(q)
+    assert_exact_topk(bd, bi, oracle(pts, qn, 11)[1],
+                      torch.from_numpy(pts).to(cuda),
+                      torch.from_numpy(qn).to(cuda))
+    eng = P2HEngine(P2HIndex.build(x, n0=64, device=cuda), sharded=idx,
+                    slot_size=len(q))
+    ed, ei = eng.query(q, 10)
+    assert eng.stats()["routes"] == {"sharded": 1}
+    assert np.array_equal(ed, bd) and np.array_equal(ei, bi)

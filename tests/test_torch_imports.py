@@ -56,7 +56,10 @@ def test_port_imports_neither_jax_nor_repro():
                    "repro_torch.core.api",
                    "repro_torch.core.transform", "repro_torch.core.nh",
                    "repro_torch.core.fh",
-                   "repro_torch.kernels.stacked_sweep"):
+                   "repro_torch.kernels.stacked_sweep",
+                   "repro_torch.launch.mesh",
+                   "repro_torch.parallel.collectives",
+                   "repro_torch.stream.meshcheck"):
         assert module in names, module
 
 
@@ -85,11 +88,17 @@ print(sorted(getattr(mod, "__all__", ())))
 
 
 @pytest.mark.parametrize("module,names", [
-    ("repro_torch.core.distributed", {"two_round_exchange", "warm_round1"}),
+    ("repro_torch.core.distributed", {"two_round_exchange", "warm_round1",
+                                      "ShardedP2HIndex"}),
     ("repro_torch.stream.sharded", {"ShardedMutableP2HIndex", "HashRouter"}),
     ("repro_torch.stream.resharding", {"VersionedRouter", "MigrationJournal",
                                        "plan_split", "plan_merge"}),
     ("repro_torch.parallel.sharding", {"mesh_signature"}),
+    ("repro_torch.launch.mesh", {"DeviceMesh", "make_mesh",
+                                 "make_serving_mesh", "mesh_context"}),
+    ("repro_torch.parallel.collectives", {"all_gather", "pmin", "psum",
+                                          "per_position"}),
+    ("repro_torch.stream.meshcheck", {"run_churn_parity"}),
 ])
 def test_sharded_modules_import_alone(module, names):
     """Each module of the sharded slice imports on its own, first in a

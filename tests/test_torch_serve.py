@@ -11,8 +11,9 @@ Inside the port the engine's answers equal the direct route's bit for
 bit.  The batcher, the dispatch table and the lambda cache are held to the
 JAX package's on identical inputs, also on clustered data, where each
 package is held to the oracle on its own; the device-sharded forest and a
-multi-device mesh stay refused (ROADMAP.md, queue 1, item 12).  The
-sharded mutable index's serving is ``test_torch_sharded.py``'s.
+multi-device mesh serve (``tests/test_torch_distributed.py`` holds the
+forest's route to the JAX package's).  The sharded mutable index's serving
+is ``test_torch_sharded.py``'s.
 """
 import dataclasses
 
@@ -428,15 +429,26 @@ def test_engine_on_clustered_data_equals_the_oracle(clustered, route):
             == je.stats()["lambda_cache"]["hits"] > 0)
 
 
-# --------------------------------------------------------------- refusals
+# ------------------------------------------------- the forest and the mesh
 def test_engine_refuses_sharded_and_mesh_paths(setup, monkeypatch):
-    """The device-sharded forest (``sharded=``, the ``"sharded"`` route)
-    and a serving mesh of more than one device wait for ROADMAP.md queue 1
-    item 12; each is refused, never half-served.  A front-end that only
-    looks sharded is not a sharded index."""
-    data, tidx, _, q, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="item 12"):
-        P2HEngine(tidx, sharded=object())
+    """The device-sharded forest (``sharded=``, the ``"sharded"`` route) and
+    a serving mesh of several positions now serve: the engine's answers
+    equal the forest's own query, and a snapshot carrying a 2-position mesh
+    answers bit for bit as one program, reporting ``mesh_devices``.  What
+    stays refused: a front-end that only looks sharded, an object that is
+    no index, and the ``"sharded"`` route without a forest."""
+    from repro_torch.core.distributed import ShardedP2HIndex
+    from repro_torch.launch.mesh import make_mesh
+
+    data, tidx, _, q, od, oi, nxt = setup
+    forest = ShardedP2HIndex.build(data, make_mesh(
+        (2,), ("data",), devices=["cpu"] * 2), n0=128)
+    seng = P2HEngine(tidx, sharded=forest, slot_size=len(q))
+    bd, bi = seng.query(q, k=K)
+    assert seng.stats()["routes"] == {"sharded": 1}
+    fd, fi, _ = forest.query(q, K)
+    assert np.array_equal(bd, fd) and np.array_equal(bi, fi)
+    assert_topk_parity(bd, bi, od, oi, nxt)
 
     class ShardedFrontEnd:  # holds shards, but is no sharded index
         shards = ()
@@ -446,18 +458,18 @@ def test_engine_refuses_sharded_and_mesh_paths(setup, monkeypatch):
     with pytest.raises(TypeError, match="P2HIndex"):
         P2HEngine(object())
     eng = P2HEngine(tidx, slot_size=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="sharded="):
         eng.query(q, k=K, method="sharded")
     m = MutableP2HIndex.from_data(data[:500], n0=64, device="cpu")
     meng = P2HEngine(m, slot_size=8)
+    one = meng.query(q, k=K)
     snap = m.snapshot()
-    object.__setattr__(snap, "mesh", ["cpu", "cpu"])  # two devices
+    object.__setattr__(snap, "mesh", make_mesh((2,), ("shard",),
+                                               devices=["cpu"] * 2))
     monkeypatch.setattr(m, "snapshot", lambda: snap)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        meng.query(q, k=K)
-    object.__setattr__(snap, "mesh", "cpu")  # one device serves
-    bd, bi = meng.query(q, k=K)
-    assert np.isfinite(bd).all()
+    two = meng.query(q, k=K)
+    assert np.array_equal(one[0], two[0]) and np.array_equal(one[1], two[1])
+    assert meng.stats()["mesh_devices"] == 2
 
 
 def test_engine_serves_only_its_own_index(setup):

@@ -505,27 +505,38 @@ def test_clustered_each_package_equals_the_oracle(clustered, kw):
 
 # -------------------------------------------------------------------- mesh
 def test_mesh_is_none_or_one_device(pair):
-    """The serving mesh is ``None`` or the index's one device; more than one
-    device is refused naming ROADMAP.md queue 1 item 12, another device
-    with ``ValueError``."""
+    """The serving mesh serves at any size: with ``None``, one position or
+    two (``cpu`` twice), the index answers bit for bit as one program and
+    ``stats()`` reports the positions and the signature; the exchange
+    takes ``mesh=`` too.  A mesh of another device type is refused with
+    ``ValueError``: it would move the work off the index's device."""
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.sharding import mesh_devices, mesh_signature
 
     t, _ = pair
-    assert mesh_signature()[:1] == ("default",) and mesh_signature()[2] == 1
-    assert mesh_signature("cpu") == ("device", "cpu", None)
-    assert mesh_devices(None) == mesh_devices(["cpu"]) == 1
-    assert mesh_devices(["cpu", ("cpu", "cpu")]) == 3
-    for mesh in ("cpu", [torch.device("cpu")], None):
+    assert mesh_signature()[:2] == ("default", "cpu")
+    two = make_mesh((2,), ("shard",), devices=["cpu"] * 2)
+    assert mesh_signature(two) == ("mesh", ("shard",), (2,), ("cpu", "cpu"),
+                                   "cpu")
+    assert mesh_devices(None) == 1 and mesh_devices(two) == 2
+    q = _mkdata(2, seed=3, dim=DIM + 1)
+    t.set_mesh(None)
+    base = t.query(q, K)
+    stacked = t.query(q, K, method="stacked")
+    for mesh, n in ((None, 1), (make_mesh((1,), ("shard",),
+                                          devices=["cpu"]), 1), (two, 2)):
         t.set_mesh(mesh)
         assert t.snapshot().mesh == mesh
-        assert t.stats()["mesh_devices"] == 1
-        bd, _ = t.query(_mkdata(2, seed=3, dim=DIM + 1), K)
-        assert np.isfinite(bd).all()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t.set_mesh(["cpu", "cpu"])
+        assert t.stats()["mesh_devices"] == n
+        for want, got in ((base, t.query(q, K)),
+                          (stacked, t.query(q, K, method="stacked"))):
+            assert np.array_equal(want[0], got[0])
+            assert np.array_equal(want[1], got[1])
+    t.set_mesh(None)
     with pytest.raises(ValueError, match="device"):
-        t.set_mesh("cuda")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        two_round_exchange(t.snapshot().shards, _queries(1), K,
-                           mesh=["cpu", "cpu"])
-    assert t.snapshot().mesh is None
+        t.set_mesh(make_mesh((1,), ("shard",), devices=["cuda"]))
+    d2, i2, _ = two_round_exchange(t.snapshot().shards, _queries(1), K,
+                                   mesh=two, stacked=True)
+    d1, i1, _ = two_round_exchange(t.snapshot().shards, _queries(1), K,
+                                   stacked=True)
+    assert np.array_equal(d1, d2) and np.array_equal(i1, i2)

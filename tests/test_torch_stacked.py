@@ -498,16 +498,19 @@ def test_compile_registry_keeps_the_jax_keys(stacks):
 
 
 def test_multi_device_mesh_is_refused(stacks):
+    """A mesh of two positions serves (one launch a position and pass), bit
+    for bit the single launch; a one-position mesh is the single launch."""
+    from repro_torch.launch.mesh import make_mesh
+
     _, ts, _, _ = stacks
-
-    class Mesh:
-        shape = {"shard": 2}
-
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tss.stacked_sweep_query(ts, _queries(8, seed=16), 3, mesh=Mesh())
-    Mesh.shape = {"shard": 1}  # one device is the single launch
-    _, _, _, info = tss.stacked_sweep_query(ts, _queries(8, seed=16), 3,
-                                            mesh=Mesh())
+    q = _queries(8, seed=16)
+    d0, i0, _, _ = tss.stacked_sweep_query(ts, q, 3)
+    d2, i2, _, info = tss.stacked_sweep_query(
+        ts, q, 3, mesh=make_mesh((2,), ("shard",), devices=["cpu"] * 2))
+    assert info["mesh_devices"] == 2
+    assert torch.equal(d0, d2) and torch.equal(i0, i2)
+    _, _, _, info = tss.stacked_sweep_query(
+        ts, q, 3, mesh=make_mesh((1,), ("shard",), devices=["cpu"]))
     assert info["mesh_devices"] == 1
 
 
