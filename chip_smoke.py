@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # full size: 1,000,000 x 128 planted
 
-Three paths, each through the entry points a user calls:
+The main paths, each through the entry points a user calls:
 
   * slice 1, the paper's: build a BC-Tree over the data, then answer exact
     top-k point-to-hyperplane queries (``P2HIndex.query(method="kernel")``)
@@ -31,14 +31,21 @@ Three paths, each through the entry points a user calls:
     with its own stream -- the stacked route and round 2 of the exchange
     with one K2 launch a position and pass, and the device-sharded forest
     ``ShardedP2HIndex`` with one tree a position, K1 at each position in
-    each of its two rounds.
+    each of its two rounds;
+  * slice 9, the LM substrate's training path: llama3.2-1b at full width
+    (f32 parameters, bf16 compute) trained through ``make_train_step`` on
+    ``SyntheticLMDataset`` batches.  It owes no hand-written kernel (the
+    JAX package's LM code reaches no ``pallas_call``), so the ``kernels``
+    line stays K1 and K2.
 
 Phases, one line each:
 
   1. platform   the card (nvidia-smi name and power limit), precision
   2. build      one nvcc per kernel source, all started together, for
-                sm_90a; ptxas' registers and spills per instance, failing
-                if an instance the main paths launch (bq = 64) spills
+                sm_90a, in the background of the phases that launch no
+                kernel (13, then phase 7's index and phase 3's tree);
+                ptxas' registers and spills per instance, failing if an
+                instance the main paths launch (bq = 64) spills
   3. data       host build of the data and the tree; index size
   4. kernel     K1 against its plain PyTorch version on the same operands
                 at the card's schedule (bq = 64 query blocks, `split` CTAs
@@ -144,6 +151,22 @@ Phases, one line each:
                 and the merge timed apart, and served by
                 ``P2HEngine(..., sharded=)`` at slot 1024, cold and warm
                 equal to the direct query
+13. lm         (run right after phase 2 starts: it launches no kernel of
+                the port, so it trains while nvcc builds)
+                (a) ``get_model``-style llama3.2-1b at full width on the
+                card, AdamW under the cosine schedule, 20 steps of 4 x 2048
+                tokens: the step-0 loss within 0.5 of ln V and within 0.05
+                of the f32-compute loss on the same parameters and batch,
+                every loss and grad norm finite, the last loss below the
+                first; step time (median of the warm steps, CUDA events),
+                tokens/s, ``max_memory_allocated``, 6 N T and its share of
+                the bf16 dense peak; (b) ``gqa_attention`` forward and
+                backward at the model's attention shapes against a dense
+                softmax attention written plainly, in f32 and bf16, timed
+                beside ``scaled_dot_product_attention``; (c) ``train()`` at
+                smoke width, f32 compute, on the card against the host
+                (the first 4 losses rtol 1e-4) and resumed after an
+                injected crash (final loss rtol 1e-5)
   8. kernels    one JSON line, after every phase: per kernel its launches
                 (by phase), error and times
 
@@ -163,6 +186,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -200,6 +224,16 @@ BASE_M, BASE_L, LIFT_N, BUDGETS = 16, 4, 20_000, (256, 2048)
 REF_ROWS = 64  # queries whose candidates are held to the reference loop
 # the serving mesh: positions on the one card (its device named this often)
 MESH_POSITIONS = 4
+# the LM substrate (phase 13): the model, the batch of one train step
+# (B x S tokens), its steps and the first warm one; the smoke-width runs'
+# steps and the step the crash is injected at
+LM_ARCH, LM_BATCH, LM_SEQ, LM_STEPS, LM_WARM = "llama3.2-1b", 4, 2048, 20, 3
+LM_SMOKE_STEPS, LM_CRASH_AT = 30, 17
+# steps of the smoke runs whose losses the card must hold to the host's:
+# past them AdamW amplifies f32 rounding differences (a 2e-7 relative
+# change of the host's own embedding moves its loss by 2.4e-5 at step 5
+# and 1.2e-3 at step 10), so the runs part at any tolerance
+LM_PARITY_STEPS = 4
 SRC = Path(__file__).resolve().parent / "src"
 BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
@@ -314,10 +348,10 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         wal_more=WAL_MORE, shards=SHARDS, shard_slots=SHARD_SLOTS,
         failing=FAILING, dur_n=DUR_N, dur_shards=DUR_SHARDS,
         dur_writes=DUR_WRITES, dur_more=DUR_MORE, lift_n=LIFT_N,
-        budgets=BUDGETS) -> dict:
+        budgets=BUDGETS, lm_kw=None) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
-    size; ``sweep_n`` cuts slice 1's depth alone); returns the kernels
-    record."""
+    size; ``sweep_n`` cuts slice 1's depth alone, ``lm_kw`` is passed to
+    :func:`run_lm`); returns the kernels record."""
     import torch
 
     from repro_torch.kernels import _build
@@ -332,29 +366,45 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         matmul_precision=report["matmul_precision"],
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build every kernel, one nvcc per source, all at once
+    # 2. build every kernel, one nvcc per source, all at once, while the
+    # phases that launch no kernel run: 13 trains the LM, then 7's index
+    # and 3's tree are built on the host; checked before phase 4
+    ready = None
     if device.type == "cuda":
-        t0 = time.perf_counter()
-        reports = _build.build(force=True)
-        log("build", seconds=f"{time.perf_counter() - t0:.1f}",
-            target="sm_90a", libraries=",".join(
-                _build.library_path(name).name for name in _build.SOURCES))
-        instances = {}
-        for ptxas in reports.values():
-            instances.update(ptxas_instances(ptxas))
-        for inst, (regs, st, ld) in sorted(instances.items()):
-            log("build", instance=inst, registers=regs, spill_stores=st,
-                spill_loads=ld)
-        for inst in MAIN_INSTANCES:  # the main path's instances
-            if inst not in instances or any(instances[inst][1:]):
-                raise AssertionError(f"{inst}: missing from ptxas' report or "
-                                     f"spills ({instances.get(inst)})")
+        pool = ThreadPoolExecutor(max_workers=1)
+        future = pool.submit(lambda t=time.perf_counter(): (
+            _build.build(force=True), time.perf_counter() - t))
+        pool.shutdown(wait=False)
+
+        def ready():
+            reports, seconds = future.result()
+            log("build", seconds=f"{seconds:.1f}", target="sm_90a",
+                libraries=",".join(_build.library_path(name).name
+                                   for name in _build.SOURCES))
+            instances = {}
+            for ptxas in reports.values():
+                instances.update(ptxas_instances(ptxas))
+            for inst, (regs, st, ld) in sorted(instances.items()):
+                log("build", instance=inst, registers=regs, spill_stores=st,
+                    spill_loads=ld)
+            for inst in MAIN_INSTANCES:  # the main path's instances
+                if inst not in instances or any(instances[inst][1:]):
+                    raise AssertionError(f"{inst}: missing from ptxas' "
+                                         f"report or spills "
+                                         f"({instances.get(inst)})")
+    t0 = time.perf_counter()
+    run_lm(device, card, reps=reps, **(lm_kw or {}))
+    log("lm", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    stacked = build_stacked(device, n=n, d=d, queries=queries, n0=n0,
+                            fresh=fresh, deletes=deletes)
     k1, frozen = run_sweep(device, card, n=sweep_n or n, d=d,
                            queries=queries, n0=n0,
                            sweep_queries=sweep_queries,
-                           dfs_queries=dfs_queries, reps=reps)
+                           dfs_queries=dfs_queries, reps=reps, ready=ready)
     k2, mutable = run_stacked(device, card, n=n, d=d, queries=queries,
-                              n0=n0, reps=reps, fresh=fresh, deletes=deletes)
+                              n0=n0, reps=reps, fresh=fresh, deletes=deletes,
+                              built=stacked)
+    del stacked
     served = run_serve(device, card, frozen, mutable, hot=hot, slots=slots,
                        wal_n=wal_n, wal_inserts=wal_inserts,
                        wal_deletes=wal_deletes, wal_more=wal_more)
@@ -383,9 +433,11 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
 
 
 def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
-              dfs_queries, reps) -> dict:
+              dfs_queries, reps, ready=None) -> dict:
     """Slice 1, phases 3-6; returns K1's record and what phase 9 reuses:
-    the index, the raw queries and the oracle's answer to them."""
+    the index, the raw queries and the oracle's answer to them.
+    ``ready()``, when given, is called once the host data and tree are
+    built, before the first kernel launch (the build of phase 2)."""
     import torch
 
     from repro_torch.core.api import P2HIndex
@@ -411,6 +463,8 @@ def run_sweep(device, card, *, n, d, queries, n0, sweep_queries,
         leaves=tree.num_leaves, nodes=tree.num_nodes, depth=tree.max_depth,
         index_bytes=index.report.index_bytes,
         tile_bytes=tree.points.nbytes)
+    if ready is not None:
+        ready()
     qn = torch.from_numpy(normalize_query(q)).to(device)
     pts = torch.from_numpy(append_ones(x)).to(device)
     # the oracle's top-(k+1): the answer, and the (k+1)-th the tie rule
@@ -653,23 +707,16 @@ def stacked_bound(rec: dict, live, d: int) -> tuple[float, float, int]:
     return bytes_ms, ops / PEAK_OPS[dtype] * 1e3, pairs
 
 
-def run_stacked(device, card, *, n, d, queries, n0, reps,
-                rounds=ROUNDS, fresh=FRESH, deletes=DELETES,
-                seq_queries=SEQ_QUERIES) -> dict:
-    """Slice 2, phase 7: the mutable index's stacked read path; returns
-    K2's record and what phase 9 reuses: the index, its deleted gids and
-    the oracle's view of its live set."""
+def build_stacked(device, *, n, d, queries, n0, rounds=ROUNDS,
+                  fresh=FRESH, deletes=DELETES) -> dict:
+    """Phase 7's index: a ``MutableP2HIndex`` of ``rounds`` sealed
+    segments, a live delta and deletes, built on the host and uploaded.
+    It launches no kernel, so ``run()`` builds it while nvcc runs."""
     import torch
 
-    from repro_torch.core import search
-    from repro_torch.core.balltree import normalize_query
-    from repro_torch.core.exact import exact_search
     from repro_torch.data.pipeline import make_p2h_dataset
-    from repro_torch.kernels import p2h_scan, ref
-    from repro_torch.kernels import stacked_sweep as tss
     from repro_torch.stream import CompactionPolicy, MutableP2HIndex
 
-    k = K
     x, q = make_p2h_dataset(n, d, kind="planted", n_queries=queries,
                             seed=SEED)
     chunk = n // rounds
@@ -714,6 +761,31 @@ def run_stacked(device, card, *, n, d, queries, n0, reps,
             f"{c['wall_s']:.1f}" for c in m.compaction_log),
         delete_seconds=f"{delete_s:.2f}", stack_seconds=f"{stack_s:.2f}",
         stacked_plane_bytes=planes)
+    return dict(q=q, index=m, dead=dead, snap=snap, stk=stk)
+
+
+def run_stacked(device, card, *, n, d, queries, n0, reps,
+                rounds=ROUNDS, fresh=FRESH, deletes=DELETES,
+                seq_queries=SEQ_QUERIES, built=None) -> dict:
+    """Slice 2, phase 7: the mutable index's stacked read path; returns
+    K2's record and what phase 9 reuses: the index, its deleted gids and
+    the oracle's view of its live set.  ``built`` is
+    :func:`build_stacked`'s result at the same sizes (built here when
+    None)."""
+    import torch
+
+    from repro_torch.core import search
+    from repro_torch.core.balltree import normalize_query
+    from repro_torch.core.exact import exact_search
+    from repro_torch.kernels import p2h_scan, ref
+    from repro_torch.kernels import stacked_sweep as tss
+
+    k = K
+    if built is None:
+        built = build_stacked(device, n=n, d=d, queries=queries, n0=n0,
+                              rounds=rounds, fresh=fresh, deletes=deletes)
+    q, m, dead = built["q"], built["index"], built["dead"]
+    snap, stk = built["snap"], built["stk"]
 
     # the oracle over the live set; answers carry global ids, so the
     # points are laid out by gid for the float64 check
@@ -2304,6 +2376,294 @@ def run_mesh(device, card, mutable: dict, exchange: dict, frozen: dict, *,
         equals_direct=True, warm_equals_cold=True,
         cache_hits=eng.cache.stats()["hits"])
     return launches
+
+
+def plain_attention(q, k, v, scale):
+    """Causal softmax attention written out densely: the KV heads repeated
+    to the query heads, scores, softmax and the product with V in f32 on
+    the operands as given.  (B, S, H, D) -> (B, S, H, D) f32."""
+    import torch
+
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    kr = k.float().repeat_interleave(G, dim=2)
+    vr = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kr)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vr)
+
+
+def sdpa_attention(q, k, v, scale):
+    """The library's fused attention on the same operands (the yardstick
+    for a fused kernel; used nowhere in the port)."""
+    import torch.nn.functional as F
+
+    G = q.shape[2] // k.shape[2]
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+        v.repeat_interleave(G, dim=2).transpose(1, 2), is_causal=True,
+        scale=scale)
+    return out.transpose(1, 2)
+
+
+def run_lm(device, card, *, reps, cfg=None, batch=LM_BATCH, seq=LM_SEQ,
+           steps=LM_STEPS, warm=LM_WARM, smoke_steps=LM_SMOKE_STEPS,
+           crash_at=LM_CRASH_AT) -> None:
+    """Phase 13, the LM substrate: (a) ``LM_ARCH`` at full width (or
+    ``cfg``, a cut of it for a rehearsal) trained through
+    ``make_train_step``; (b) the attention against the plain version; (c)
+    ``train()`` at smoke width on the card against the host, and resumed
+    after an injected crash."""
+    import torch
+
+    from repro_torch.models.registry import get_config
+
+    cfg = cfg or get_config(LM_ARCH)
+    run_lm_train(device, card, cfg, batch=batch, seq=seq, steps=steps,
+                 warm=warm)
+    run_lm_attention(device, card, cfg, seq=seq, reps=reps)
+    run_lm_smoke(device, card, steps=smoke_steps, crash_at=crash_at)
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the LM phase turned TF32 on")
+
+
+def run_lm_train(device, card, cfg, *, batch, seq, steps, warm) -> None:
+    """(a) The model on the card (f32 parameters, the config's bf16
+    compute), AdamW under the cosine schedule, ``steps`` steps of
+    ``SyntheticLMDataset`` batches of batch x seq tokens."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import lm_loss, make_train_step
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.models.transformer import StackedLM
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cfg == get_config(LM_ARCH):  # the entry point a user calls
+        model, _ = get_model(LM_ARCH, seed=SEED, device=device)
+    else:  # a cut of it, for a rehearsal on the host
+        model = StackedLM(cfg, seed=SEED, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = model.param_count()
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq=seq, global_batch=batch,
+                            seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in ds.global_batch_arrays(s).items()}
+               for s in range(steps)]
+    # the step-0 loss at the config's compute dtype and at f32, same
+    # parameters, same batch
+    with torch.no_grad():
+        loss0 = float(lm_loss(model, cfg, batches[0])[0])
+        model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        try:
+            loss0_f32 = float(lm_loss(model, model.cfg, batches[0])[0])
+        finally:
+            model.cfg = cfg
+    ln_v = math.log(cfg.vocab)
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(model, cfg, lr_fn=lambda s: cosine_schedule(
+        s, peak_lr=1e-3, warmup_steps=5, total_steps=steps))
+    runs = [timed_call(lambda b=b: step(opt, b), device) for b in batches]
+    with torch.no_grad():
+        loss0_after = float(lm_loss(model, cfg, batches[0])[0])
+    ms = [t for _, t in runs]
+    loss = [float(m["loss"]) for m, _ in runs]
+    gnorm = [float(m["grad_norm"]) for m, _ in runs]
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device.type == "cuda" else None)
+    med = statistics.median(ms[warm:])
+    flops = 6 * n_params * batch * seq
+    log("lm-train", card=repr(card), arch=cfg.name, params=n_params,
+        dtypes=f"{cfg.param_dtype}/{cfg.compute_dtype}", remat=cfg.remat,
+        batch=batch, seq=seq, steps=steps, init_s=f"{init_s:.1f}",
+        loss0=f"{loss0:.4f}", loss0_f32=f"{loss0_f32:.4f}",
+        ln_vocab=f"{ln_v:.4f}", loss_first=f"{loss[0]:.4f}",
+        loss_last=f"{loss[-1]:.4f}", loss0_after=f"{loss0_after:.4f}",
+        grad_norm_first=f"{gnorm[0]:.4g}",
+        grad_norm_last=f"{gnorm[-1]:.4g}", step_ms_first=f"{ms[0]:.1f}",
+        step_ms_median=f"{med:.1f}", warm_steps=len(ms[warm:]),
+        step_ms_min=f"{min(ms[warm:]):.1f}",
+        step_ms_max=f"{max(ms[warm:]):.1f}",
+        tokens_per_s=f"{batch * seq / (med / 1e3):.0f}",
+        max_memory_allocated_gib=("not measured" if peak is None
+                                  else f"{peak:.2f}"),
+        flops_6NT=f"{flops:.4e}",
+        bf16_peak_share=(f"{flops / (med / 1e3) / PEAK_OPS['bf16']:.4f}"
+                         if device.type == "cuda" else "not measured"),
+        peak_used="989e12 bf16 dense (H100 SXM data sheet, 700 W)")
+    log("lm-train", losses=",".join(f"{x:.4f}" for x in loss),
+        step_ms=",".join(f"{x:.1f}" for x in ms))
+    lm_profile(lambda: step(opt, batches[-1]), device, card)
+    if not abs(loss0 - ln_v) < 0.5:
+        raise AssertionError(f"step-0 loss {loss0} is not within 0.5 of "
+                             f"ln V = {ln_v}")
+    if not abs(loss0_f32 - loss0) < 0.05:
+        raise AssertionError(f"step-0 loss at f32 {loss0_f32} against "
+                             f"{loss0} at {cfg.compute_dtype}")
+    if not all(math.isfinite(x) for x in loss + gnorm):
+        raise AssertionError(f"non-finite loss or grad_norm: {loss} {gnorm}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"the loss did not fall: {loss}")
+    del model, opt, step, batches, runs
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lm_profile(fn, device, card, top: int = 8) -> None:
+    """One more step under ``torch.profiler``: the device's busy time
+    beside the step's CUDA-event time, and the kernels that take the most
+    of it (the card only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ms = timed_call(fn, device)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    if not kernels:
+        log("lm-profile", card=repr(card), step_ms=f"{ms:.1f}",
+            device_busy_ms="not measured (no device events in the trace)")
+        return
+    gemm = sum(e.device_time_total for e in kernels
+               if re.search(r"gemm|xmma|cutlass|sm90", e.key)) / 1e3
+    log("lm-profile", card=repr(card), step_ms=f"{ms:.1f}",
+        device_busy_ms=f"{busy:.1f}", idle_share=f"{1 - busy / ms:.3f}",
+        kernels=sum(e.count for e in kernels), matmul_ms=f"{gemm:.1f}",
+        other_ms=f"{busy - gemm:.1f}")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:top]:
+        log("lm-profile", kernel=repr(e.key[:90]), count=e.count,
+            ms=f"{e.device_time_total / 1e3:.1f}")
+
+
+def run_lm_attention(device, card, cfg, *, seq, reps) -> None:
+    """(b) ``gqa_attention`` (forward, and the ``autograd.Function``'s
+    backward) at the config's attention shapes -- batch 1, causal, its
+    heads and chunk -- against the plain dense version on the same
+    operands, in f32 and bf16; timed beside the library's fused
+    attention."""
+    import torch
+
+    from repro_torch.models.attention import gqa_attention
+
+    B, H, Hkv, D, C = 1, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.kv_chunk
+    gen = torch.Generator().manual_seed(SEED)
+    base = [torch.randn(shape, generator=gen).to(device)
+            for shape in ((B, seq, H, D), (B, seq, Hkv, D), (B, seq, Hkv, D),
+                          (B, seq, H, D))]
+    pos = torch.arange(seq, device=device)
+    scale = 1.0 / D ** 0.5
+    # normwise bounds, max|err| / max|plain|: f32 sums in another order;
+    # in bf16 the probabilities are rounded to bf16 before p @ V, and the
+    # output and gradients are rounded to bf16
+    bound = {"f32": 2e-5, "bf16": 3e-2}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = (t.to(dt).requires_grad_(True) for t in base[:3])
+        ct = base[3].to(dt)
+
+        def port():
+            return gqa_attention(q, k, v, pos, pos, causal=True, q_chunk=C,
+                                 kv_chunk=C, compute_dtype=dt)
+
+        def fwd_bwd(fn):
+            out = fn()
+            return out, torch.autograd.grad((out.float() * ct.float()).sum(),
+                                            (q, k, v))
+
+        got = fwd_bwd(port)
+        want = fwd_bwd(lambda: plain_attention(q, k, v, scale))
+        errs = {}
+        for what, g, w in zip(("out", "dq", "dk", "dv"), (got[0], *got[1]),
+                              (want[0], *want[1])):
+            g, w = g.detach().float(), w.detach().float()
+            errs[what] = float((g - w).abs().max() / w.abs().max())
+        with torch.no_grad():
+            port_fwd_ms = timed_ms(port, reps, device)
+        times = {}
+        for key, fn in (("port", port),
+                        ("plain", lambda: plain_attention(q, k, v, scale)),
+                        ("sdpa", lambda: sdpa_attention(q, k, v, scale))):
+            fwd_bwd(fn)  # warm
+            times[key] = timed_ms(lambda fn=fn: fwd_bwd(fn), reps, device)
+        log("lm-attention", card=repr(card), dtype=name, batch=B, seq=seq,
+            heads=f"{H}/{Hkv}", head_dim=D, chunk=C, causal=True,
+            port_fwd_ms=f"{port_fwd_ms:.3f}",
+            port_fwd_bwd_ms=f"{times['port']:.3f}",
+            plain_fwd_bwd_ms=f"{times['plain']:.3f}",
+            sdpa_fwd_bwd_ms=f"{times['sdpa']:.3f}",
+            **{f"err_{k}": f"{e:.2e}" for k, e in errs.items()},
+            bound=bound[name])
+        if not max(errs.values()) <= bound[name]:
+            raise AssertionError(f"attention {name} against the plain "
+                                 f"version: {errs} > {bound[name]}")
+
+
+def run_lm_smoke(device, card, *, steps, crash_at) -> None:
+    """(c) ``train()`` at ``LM_ARCH``'s smoke width with f32 compute: on
+    the card against the same run on the host (the same seed draws the
+    same parameters on both; the first ``LM_PARITY_STEPS`` losses rtol
+    1e-4, the rest logged), and on the card with a
+    crash injected at ``crash_at``, resumed from its checkpoint to the
+    uninterrupted run's final loss (rtol 1e-5)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch.train import TrainConfig, train
+
+    root = BUILD / "chip_smoke_lm"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(tag, dev, **kw):
+        cfg = TrainConfig(arch=LM_ARCH, smoke=True, steps=steps,
+                          global_batch=8, seq=64, ckpt_dir=str(root / tag),
+                          ckpt_every=10, log_every=1, peak_lr=3e-3,
+                          warmup=5, device=dev, compute_dtype=torch.float32)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, hist, restarts = train(cfg, **kw)
+        return [h["loss"] for h in hist], restarts, time.perf_counter() - t0
+
+    card_loss, _, card_s = run("card", device)
+    host_loss, _, host_s = run("host", "cpu")
+    crash_loss, restarts, crash_s = run("crash", device,
+                                        fail_at_step=crash_at)
+    rel = np.abs(np.asarray(card_loss) - host_loss) / np.abs(host_loss)
+    parity = float(rel[:LM_PARITY_STEPS].max())
+    resumed = abs(crash_loss[-1] - card_loss[-1]) / abs(card_loss[-1])
+    log("lm-smoke", card=repr(card), arch=f"{LM_ARCH} smoke", steps=steps,
+        compute="f32", card_s=f"{card_s:.1f}", host_s=f"{host_s:.1f}",
+        loss_first=f"{card_loss[0]:.5f}", loss_last=f"{card_loss[-1]:.5f}",
+        parity_steps=LM_PARITY_STEPS,
+        card_vs_host_max_rel=f"{parity:.2e}",
+        card_vs_host_max_rel_all_steps=f"{float(rel.max()):.2e}",
+        crash_at=crash_at,
+        restarts=restarts, resumed_loss=f"{crash_loss[-1]:.6f}",
+        resumed_rel=f"{resumed:.2e}", crash_s=f"{crash_s:.1f}")
+    np.testing.assert_allclose(card_loss[:LM_PARITY_STEPS],
+                               host_loss[:LM_PARITY_STEPS], rtol=1e-4,
+                               err_msg="train() on the card against the host")
+    if restarts != 1 or not resumed <= 1e-5:
+        raise AssertionError(f"crash-restart: {restarts} restarts, final "
+                             f"loss {crash_loss[-1]} against "
+                             f"{card_loss[-1]}")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:

@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of the BC-Tree P2HNNS system.
 
 Mirrors the JAX package ``repro`` module by module (``core/``, ``kernels/``,
-``data/``, ``launch/``, ``stream/``, ``checkpoint/``) and never imports it or
-JAX.  Entry points run on the CUDA card unless the caller passes
+``data/``, ``launch/``, ``stream/``, ``checkpoint/``, and the LM substrate's
+dense training path: ``models/``, ``configs/``, ``optim/``) and never
+imports it or JAX.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the kernels are hand-written CUDA for Hopper
 (``kernels/csrc/p2h_sweep.cu``, ``kernels/csrc/stacked_sweep.cu``).
 """

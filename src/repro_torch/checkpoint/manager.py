@@ -107,10 +107,26 @@ def _treedef_str(tree) -> str:
     return f"PyTreeDef({rec(tree)})"
 
 
-def _host(x) -> np.ndarray:
+def _host(x) -> tuple[np.ndarray, str]:
+    """A leaf as a host array of its own and the dtype its manifest
+    records.  numpy has no bf16: a bf16 tensor is stored as its uint16
+    bits under ``"bfloat16"``, as the JAX package stores one."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return np.array(x.view(torch.int16).numpy().view(np.uint16)), \
+                "bfloat16"
+        arr = np.array(x.numpy())
+    else:
+        arr = np.array(x)
+    return arr, str(arr.dtype)
+
+
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """The inverse of :func:`_host`."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class CheckpointManager:
@@ -152,7 +168,7 @@ class CheckpointManager:
         JSON-serialisable dict stored under the manifest's ``"extra"`` key
         (the non-array state a caller needs to rebuild its structure)."""
         self.wait()
-        host = [np.array(_host(x)) for x in flatten(tree)]  # decoupled copy
+        host = [_host(x) for x in flatten(tree)]  # decoupled copies
         treedef_str = _treedef_str(tree)
 
         def write():
@@ -165,11 +181,11 @@ class CheckpointManager:
                             "leaves": [], "time": time.time()}
                 if extra_meta is not None:
                     manifest["extra"] = extra_meta
-                for i, arr in enumerate(host):
+                for i, (arr, dtype) in enumerate(host):
                     np.save(os.path.join(tmp, f"leaf_{i}.npy"), arr)
                     manifest["leaves"].append({
                         "shape": list(arr.shape),
-                        "dtype": str(arr.dtype),
+                        "dtype": dtype,
                         "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
                     })
                 with open(os.path.join(tmp, "manifest.json"), "w") as fh:
@@ -223,9 +239,10 @@ class CheckpointManager:
                                       "manifest.json"))
 
     def restore_leaves(self, step: int, *, verify: bool = True):
-        """A step's flat leaf list (numpy) and its manifest; the caller
-        reassembles the structure (:func:`unflatten`).  Checksums are
-        verified unless ``verify=False``."""
+        """A step's flat leaf list (numpy; a ``"bfloat16"`` leaf as its
+        uint16 bits) and its manifest; the caller reassembles the structure
+        (:func:`unflatten`).  Checksums are verified unless
+        ``verify=False``."""
         path = os.path.join(self.dir, f"step_{step}")
         manifest = self.read_manifest(step)
         leaves = []
@@ -238,3 +255,25 @@ class CheckpointManager:
                                   f"(sha mismatch) in {path}")
             leaves.append(arr)
         return leaves, manifest
+
+    def restore(self, step: int, like: Any, *, verify: bool = True):
+        """A step as tensors in ``like``'s structure (nested dicts/lists),
+        each leaf on the device of ``like``'s leaf at its place; a shape or
+        dtype that differs from ``like``'s raises ``ValueError``."""
+        leaves, manifest = self.restore_leaves(step, verify=verify)
+        want = flatten(like)
+        if len(want) != len(leaves):
+            raise ValueError(f"step {step} holds {len(leaves)} leaves, the "
+                             f"structure asked for {len(want)}")
+        out = []
+        for i, (arr, meta, ref) in enumerate(zip(leaves, manifest["leaves"],
+                                                 want)):
+            t = _tensor(arr, meta["dtype"])
+            if isinstance(ref, torch.Tensor):
+                if t.shape != ref.shape or t.dtype != ref.dtype:
+                    raise ValueError(
+                        f"leaf {i}: {t.dtype} {tuple(t.shape)} against "
+                        f"{ref.dtype} {tuple(ref.shape)}")
+                t = t.to(ref.device)
+            out.append(t)
+        return unflatten(like, out)

@@ -1,1 +1,1 @@
-"""Synthetic P2HNNS data."""
+"""Synthetic data: P2HNNS point sets and queries, LM token streams."""

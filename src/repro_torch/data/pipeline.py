@@ -1,14 +1,73 @@
-"""Synthetic P2HNNS point sets and hyperplane queries (host numpy).
+"""Synthetic data (host numpy): P2HNNS point sets and hyperplane queries,
+and the LM token streams.
 
-The same generator as the JAX package's ``data/pipeline.py``: with the same
-arguments it returns bit-identical arrays, so both packages can be fed the
-same data from a seed.
+The same generators as the JAX package's ``data/pipeline.py``: with the
+same arguments they return bit-identical arrays, so both packages can be
+fed the same data from a seed.
+
+Determinism contract of the LM stream (the training restart depends on
+it): the batch for step ``s`` is a pure function of (seed, step, row), so a
+restarted or re-sharded job resumes with bit-identical data and no loader
+state needs checkpointing.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-__all__ = ["make_p2h_dataset"]
+__all__ = ["make_p2h_dataset", "SyntheticLMDataset", "global_batch_for_step"]
+
+
+def _rng_for(seed: int, step: int, shard: int = 0) -> np.random.Generator:
+    return np.random.default_rng(
+        np.random.SeedSequence(entropy=seed, spawn_key=(step, shard)))
+
+
+@dataclasses.dataclass
+class SyntheticLMDataset:
+    """Token streams with a power-law unigram start and a noisy
+    deterministic bigram walk, so the loss is non-trivial and learnable."""
+
+    vocab: int
+    seq: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+
+    def shard_batch(self, step: int, shard: int, num_shards: int):
+        """The rows ``shard`` of ``num_shards`` owns at ``step``: dict(tokens
+        (b, seq) i32, labels (b, seq) i32), b = global_batch / num_shards.
+        Rows are keyed by their global index, so the global batch is the
+        same for any number of shards."""
+        if self.global_batch % num_shards:
+            raise ValueError(f"global_batch {self.global_batch} does not "
+                             f"split into {num_shards} shards")
+        b = self.global_batch // num_shards
+        rows = range(shard * b, (shard + 1) * b)
+        gens = [_rng_for(self.seed, step, r) for r in rows]
+        toks = np.empty((b, self.seq + 1), dtype=np.int32)
+        toks[:, 0] = [g.zipf(self.zipf_a) % self.vocab for g in gens]
+        steps = np.stack([g.zipf(self.zipf_a, size=self.seq) for g in gens]
+                         ).astype(np.int64)
+        mix = np.stack([g.random(self.seq) for g in gens]) < 0.25
+        for t in range(self.seq):
+            follow = (toks[:, t].astype(np.int64) * 6364136223846793005 + 7
+                      ) % self.vocab
+            toks[:, t + 1] = np.where(mix[:, t], steps[:, t] % self.vocab,
+                                      follow).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def global_batch_arrays(self, step: int):
+        """The whole global batch of ``step``."""
+        return global_batch_for_step(self, step, 1)
+
+
+def global_batch_for_step(ds: SyntheticLMDataset, step: int,
+                          num_shards: int):
+    parts = [ds.shard_batch(step, s, num_shards) for s in range(num_shards)]
+    return {k: np.concatenate([p[k] for p in parts], axis=0)
+            for k in parts[0]}
 
 
 def make_p2h_dataset(n: int, d: int, *, kind: str = "clustered",

@@ -1,0 +1,295 @@
+"""Attention, the training half: GQA/MQA self-attention with RoPE as a
+double-chunked online-softmax (flash-style) forward and a blockwise
+backward that recomputes each block's probabilities from the saved
+log-sum-exp -- the PyTorch counterpart of the JAX package's
+``models/attention.py`` (``_flash_fwd``, ``_flash_bwd`` and their
+``custom_vjp``, here one ``torch.autograd.Function``).
+
+Dtypes as in the JAX package: scores, the running max and sum and the
+output accumulator in f32; the probabilities cast to the compute dtype
+before ``p @ V``; the output in the compute dtype.  Every block is
+computed, masked ones included, so the arithmetic is the reference's.
+
+Inside the function the operands are laid out (B, H, S, D), so each block
+product is one batched matrix product over batch and heads.
+
+``local_attention``, cross-attention, ``decode_attention``, ``attn_decode``
+and ``init_kv_cache`` belong to later slices (ROADMAP.md, queue 1, items
+15.2 and 15.3).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import ParamInit, apply_rope
+
+__all__ = ["Attention", "attn_init", "gqa_attention", "attn_apply"]
+
+_NEG = -1e30
+
+
+def _mask_pad_heads(o, n_valid):
+    """Zero the outputs of padded attention heads (config
+    ``pad_heads_to``), so the padded model computes the unpadded one."""
+    if n_valid is None or n_valid >= o.shape[-2]:
+        return o
+    mask = (torch.arange(o.shape[-2], device=o.device) < n_valid).to(o.dtype)
+    return o * mask[..., :, None]
+
+
+class Attention(nn.Module):
+    """The attention sublayer's parameters: ``wq`` (d_model, H, hd),
+    ``wk``/``wv`` (d_model, Hkv, hd), ``wo`` (H, hd, d_model), and with
+    biases ``bq``/``bk``/``bv`` (heads, hd) and ``bo`` (d_model,)."""
+
+    def __init__(self, pi: ParamInit, d_model, n_heads, n_kv, head_dim, *,
+                 qkv_bias=False, out_bias=False):
+        super().__init__()
+        self.wq = pi.normal((d_model, n_heads, head_dim))
+        self.wk = pi.normal((d_model, n_kv, head_dim))
+        self.wv = pi.normal((d_model, n_kv, head_dim))
+        self.wo = pi.normal((n_heads, head_dim, d_model))
+        self.bq = pi.zeros((n_heads, head_dim)) if qkv_bias else None
+        self.bk = pi.zeros((n_kv, head_dim)) if qkv_bias else None
+        self.bv = pi.zeros((n_kv, head_dim)) if qkv_bias else None
+        self.bo = pi.zeros((d_model,)) if out_bias else None
+
+
+def attn_init(pi: ParamInit, d_model, n_heads, n_kv, head_dim, *,
+              qkv_bias=False, out_bias=False) -> Attention:
+    return Attention(pi, d_model, n_heads, n_kv, head_dim,
+                     qkv_bias=qkv_bias, out_bias=out_bias)
+
+
+def _proj(x, w, b=None, compute_dtype=torch.bfloat16):
+    """(B, S, d) x (d, H, k) -> (B, S, H, k) in the compute dtype."""
+    y = torch.tensordot(x.to(compute_dtype), w.to(compute_dtype),
+                        dims=([2], [0]))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _repeat_kv(k, n_heads, compute_dtype):
+    """(B, S, Hkv, D) -> (B, S, Hq, D): query head h reads KV head
+    h // (Hq / Hkv)."""
+    B, S, Hkv, D = k.shape
+    G = n_heads // Hkv
+    k = k.to(compute_dtype)
+    if G > 1:
+        k = k[:, :, :, None, :].expand(B, S, Hkv, G, D).reshape(
+            B, S, Hkv * G, D)
+    return k
+
+
+def _mask_block(pq, pk, causal, window):
+    """(B, Cq), (Ck,) -> (B, 1, Cq, Ck) validity mask from absolute
+    positions (-1 marks padding)."""
+    pqb = pq[:, None, :, None]
+    pkb = pk[None, None, None, :]
+    mask = (pkb >= 0) & (pqb >= 0)
+    if causal:
+        mask = mask & (pkb <= pqb)
+    if window is not None:
+        mask = mask & (pqb - pkb < window)
+    return mask
+
+
+def _dot32(a, b):
+    """``a @ b`` with f32 results: products of compute-dtype operands
+    accumulated in f32 (XLA's ``preferred_element_type=f32``)."""
+    if a.dtype != torch.float32:
+        a, b = a.float(), b.float()
+    return torch.matmul(a, b)
+
+
+def _flash_fwd(q, k, v, pos_q, pos_k, *, causal, window, nq, nk, Cq, Ck,
+               compute_dtype):
+    """Double-chunked online-softmax forward; q pre-scaled and padded.
+
+    q, k, v: (B, H, S, D).  Returns out (B, H, Sq, D) in the compute dtype
+    and lse (B, H, Sq) in f32.
+    """
+    B, H, Sq, D = q.shape
+    out = torch.empty((B, H, Sq, D), dtype=compute_dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    for i in range(nq):
+        qs = slice(i * Cq, (i + 1) * Cq)
+        qc, pq = q[:, :, qs], pos_q[:, qs]
+        m = torch.full((B, H, Cq), _NEG, dtype=torch.float32,
+                       device=q.device)
+        lsum = torch.zeros((B, H, Cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, Cq, D), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            ks = slice(j * Ck, (j + 1) * Ck)
+            kc, vc = k[:, :, ks], v[:, :, ks]
+            s = _dot32(qc, kc.transpose(-1, -2))
+            s = torch.where(_mask_block(pq, pos_k[ks], causal, window), s,
+                            _NEG)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + torch.sum(p, dim=-1)
+            pv = _dot32(p.to(compute_dtype), vc)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        lse[:, :, qs] = m + torch.log(torch.clamp_min(lsum, 1e-30))
+        lt = torch.clamp_min(lsum, 1e-30)
+        out[:, :, qs] = (acc / lt[..., None]).to(compute_dtype)
+    return out, lse
+
+
+def _flash_bwd(do, q, k, v, pos_q, pos_k, out, lse, *, causal, window,
+               nq, nk, Cq, Ck, compute_dtype):
+    """Blockwise backward: each block's probabilities recomputed from
+    ``lse``, so no block's probabilities outlive its step.  Returns dq, dk,
+    dv in f32, (B, H, S, D)."""
+    B, H, Sq, D = q.shape
+    delta = torch.sum(do.float() * out.float(), dim=-1)        # (B, H, Sq)
+    do = do.to(compute_dtype)
+    dq = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for i in range(nq):
+        qs = slice(i * Cq, (i + 1) * Cq)
+        qc, pq, doc = q[:, :, qs], pos_q[:, qs], do[:, :, qs]
+        lsec, dltc = lse[:, :, qs], delta[:, :, qs]
+        dqc = torch.zeros((B, H, Cq, D), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            ks = slice(j * Ck, (j + 1) * Ck)
+            kc, vc = k[:, :, ks], v[:, :, ks]
+            s = _dot32(qc, kc.transpose(-1, -2))
+            s = torch.where(_mask_block(pq, pos_k[ks], causal, window), s,
+                            2.0 * _NEG)
+            p = torch.exp(s - lsec[..., None])                 # (B,H,Cq,Ck)
+            pc = p.to(compute_dtype)
+            dv[:, :, ks] += _dot32(pc.transpose(-1, -2), doc)
+            dp = _dot32(doc, vc.transpose(-1, -2))
+            ds = (p * (dp - dltc[..., None])).to(compute_dtype)
+            dqc += _dot32(ds, kc)
+            dk[:, :, ks] += _dot32(ds.transpose(-1, -2), qc)
+        dq[:, :, qs] = dqc
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Padded flash attention on (B, H, S, D) operands, q pre-scaled; the
+    backward recomputes each block from the saved ``lse``.  ``static`` is
+    ``(causal, window, nq, nk, Cq, Ck, compute_dtype)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_q, pos_k, static):
+        causal, window, nq, nk, Cq, Ck, cd = static
+        out, lse = _flash_fwd(q, k, v, pos_q, pos_k, causal=causal,
+                              window=window, nq=nq, nk=nk, Cq=Cq, Ck=Ck,
+                              compute_dtype=cd)
+        ctx.save_for_backward(q, k, v, pos_q, pos_k, out, lse)
+        ctx.static = static
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, pos_q, pos_k, out, lse = ctx.saved_tensors
+        causal, window, nq, nk, Cq, Ck, cd = ctx.static
+        dq, dk, dv = _flash_bwd(do, q, k, v, pos_q, pos_k, out, lse,
+                                causal=causal, window=window, nq=nq, nk=nk,
+                                Cq=Cq, Ck=Ck, compute_dtype=cd)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def gqa_attention(q, k, v, pos_q, pos_k, *, causal=True, window=None,
+                  kv_len=None, q_chunk=1024, kv_chunk=1024, scale=None,
+                  compute_dtype=torch.bfloat16):
+    """Double-chunked online-softmax attention with a flash-style backward
+    (:class:`FlashAttention`).
+
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); Hq % Hkv == 0.
+    pos_q: (Sq,) or (B, Sq); pos_k: (Sk,) global positions.
+    Returns (B, Sq, Hq, D) in the compute dtype.  ``kv_len`` (a ragged
+    cache's valid prefix) belongs to serving, ROADMAP.md item 15.3.
+    """
+    if kv_len is not None:
+        raise NotImplementedError("kv_len is the serving path's (ROADMAP.md, "
+                                  "queue 1, item 15.3)")
+    B, Sq, Hq, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    k = _repeat_kv(k, Hq, compute_dtype)
+    v = _repeat_kv(v, Hq, compute_dtype)
+    Sk = k.shape[1]
+    q = q.to(compute_dtype) * torch.tensor(scale, dtype=compute_dtype,
+                                           device=q.device)
+    pos_q = torch.as_tensor(pos_q, device=q.device)
+    if pos_q.dim() <= 1:
+        pos_q = pos_q.expand(B, Sq)
+    pos_k = torch.as_tensor(pos_k, device=q.device)
+
+    Cq = min(q_chunk, Sq)
+    Ck = min(kv_chunk, Sk)
+    padq = (-Sq) % Cq
+    padk = (-Sk) % Ck
+    if padq:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, padq))
+        pos_q = torch.nn.functional.pad(pos_q, (0, padq), value=-1)
+    if padk:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, padk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, padk))
+        pos_k = torch.nn.functional.pad(pos_k, (0, padk), value=-1)
+    nq, nk = q.shape[1] // Cq, k.shape[1] // Ck
+    static = (causal, window, nq, nk, Cq, Ck, compute_dtype)
+    out = FlashAttention.apply(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), pos_q.contiguous(), pos_k, static)
+    return out.transpose(1, 2)[:, :Sq]
+
+
+# ----------------------------------------------------------------------
+# the attention sublayer (projections + rope + attend + out-projection)
+# ----------------------------------------------------------------------
+
+
+def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
+               kv=None, pos_q=None, pos_k=None, kv_len=None,
+               use_local_path=True, q_chunk=1024, kv_chunk=1024, scale=None,
+               compute_dtype=torch.bfloat16, rope_on=True,
+               n_valid_heads=None):
+    """Self-attention sublayer on (B, S, E).  Returns (out (B, S, E) in
+    x's dtype, (k, v)) -- k/v before the repeat, Hkv heads.
+
+    A sliding window takes ``gqa_attention``'s masked path here; the JAX
+    package's two-block ``local_attention`` (``use_local_path``) and
+    cross-attention (``kv``) come with the families that use them
+    (ROADMAP.md, queue 1, item 15.2)."""
+    if kv is not None or (window is not None and use_local_path):
+        raise NotImplementedError(
+            "cross-attention and the two-block local path come with "
+            "ROADMAP.md, queue 1, item 15.2")
+    B, S, E = x.shape
+    q = _proj(x, p.wq, p.bq, compute_dtype)
+    k = _proj(x, p.wk, p.bk, compute_dtype)
+    v = _proj(x, p.wv, p.bv, compute_dtype)
+    if rope_on:
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    q = q.to(compute_dtype)
+    k = k.to(compute_dtype)
+    v = v.to(compute_dtype)
+    if pos_q is None:
+        pos_q = torch.arange(S, device=x.device)
+    if pos_k is None:
+        pos_k = torch.arange(k.shape[1], device=x.device)
+    o = gqa_attention(q, k, v, pos_q, pos_k, causal=causal, window=window,
+                      kv_len=kv_len, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                      scale=scale, compute_dtype=compute_dtype)
+    o = _mask_pad_heads(o, n_valid_heads)
+    H, hd = p.wo.shape[0], p.wo.shape[1]
+    out = torch.matmul(o.to(compute_dtype).reshape(B, S, H * hd),
+                       p.wo.to(compute_dtype).reshape(H * hd, -1))
+    if p.bo is not None:
+        out = out + p.bo.to(out.dtype)
+    return out.to(x.dtype), (k, v)

@@ -1,0 +1,97 @@
+"""Carry parameters between the JAX package's pytree and the port's
+modules.
+
+The JAX package's ``StackedLM.init`` returns a nested dict: ``embed``,
+``final_norm/{scale,bias}``, ``head`` when the embedding is untied,
+``periods/slot<i>/...`` with every leaf stacked on a leading period axis,
+and ``tail<i>/...`` unstacked.  The port keeps one module per layer
+(``layers.<n>``, period by period, then the tail), with the same leaf names
+below the layer (``ln1.scale``, ``attn.wq``, ``ffn.wi``, ...) and the same
+shapes.  The two packages draw their initial parameters from different
+generators, so parity tests load the JAX package's parameters with
+:func:`from_reference_arrays` and read the port's back (or its gradients,
+or its optimiser moments) with :func:`to_reference_arrays`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["from_reference_arrays", "to_reference_arrays"]
+
+
+def _reference_path(cfg, name: str):
+    """A port parameter name -> (its path in the JAX package's tree, its
+    index on the stacked period axis or None)."""
+    parts = tuple(name.split("."))
+    if parts[0] != "layers":
+        return parts, None
+    idx, rest = int(parts[1]), parts[2:]
+    n = len(cfg.pattern)
+    if idx < cfg.n_periods * n:
+        return ("periods", f"slot{idx % n}") + rest, idx // n
+    return (f"tail{idx - cfg.n_periods * n}",) + rest, None
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _leaves(sub, prefix + (key,))
+    else:
+        yield prefix, tree
+
+
+@torch.no_grad()
+def from_reference_arrays(model, tree) -> None:
+    """Load the JAX package's parameter tree (numpy arrays, or anything
+    ``np.asarray`` takes) into ``model`` in place; every leaf of the tree
+    must land on a parameter of the same shape."""
+    used = set()
+    for name, p in model.named_parameters():
+        path, layer = _reference_path(model.cfg, name)
+        node = tree
+        for key in path:
+            node = node[key]
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+        if layer is not None:
+            arr = arr[layer]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(p.shape)} against the "
+                             f"tree's {tuple(arr.shape)} at {'/'.join(path)}")
+        p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
+        used.add(path)
+    missing = [p for p, _ in _leaves(tree) if p not in used]
+    if missing:
+        raise ValueError(f"tree leaves with no parameter: {missing}")
+
+
+def to_reference_arrays(model, values=None) -> dict:
+    """The JAX package's tree of ``model``'s parameters, or of ``values``
+    (a mapping from parameter name to tensor, e.g. gradients or optimiser
+    moments), as numpy arrays; bf16 comes back as f32."""
+    if values is None:
+        values = dict(model.named_parameters())
+    stacks: dict = {}
+    tree: dict = {}
+    for name, _ in model.named_parameters():
+        path, layer = _reference_path(model.cfg, name)
+        t = values[name].detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        arr = t.numpy()
+        if layer is not None:
+            stacks.setdefault(path, {})[layer] = arr
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    for path, per_layer in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([per_layer[i]
+                                   for i in range(len(per_layer))])
+    return tree

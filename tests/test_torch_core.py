@@ -307,3 +307,96 @@ def test_dfs_matches_jax(planted, kw):
     jout = jsearch.dfs_search(jtree, jnp.asarray(qn), k, **kw)
     _check_search(planted, tout, jout, k,
                   exact="max_candidates" not in kw)
+
+
+# ----------------------------------------------------------------------
+# the cone bound on built trees over nearly collinear leaves
+# ----------------------------------------------------------------------
+U32 = 2.0 ** -24
+
+
+def _collinear(seed, n=4000, d=8, clusters=8):
+    """Clusters of points nearly on rays from the origin, far out (t in
+    [50, 60]), so after the appended 1 each leaf's points lie within a few
+    milliradians of its centre's direction; half the queries are
+    hyperplanes nearly containing a cluster's ray."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(clusters, d))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    c = rng.integers(0, clusters, n)
+    t = rng.uniform(50.0, 60.0, n)
+    x = dirs[c] * t[:, None] + rng.normal(size=(n, d)) * 1e-3
+    w = rng.normal(size=(64, d))
+    near = dirs[rng.integers(0, clusters, 32)]
+    w[:32] -= np.einsum("qd,qd->q", w[:32], near)[:, None] * near
+    w[:32] += near * rng.normal(scale=1e-3, size=(32, 1))
+    b = rng.normal(scale=0.05, size=(64, 1))
+    return x.astype(np.float32), tbt.normalize_query(
+        np.concatenate([w, b], axis=1).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cone_bound_of_built_tree_is_a_lower_bound(seed):
+    """The point cone bound (Theorem 3), computed as the searches compute
+    it from the built tree's f32 ``xcos``/``xsin``/``leaf_cnorm`` and the
+    f32 ``<q, c>``, stays below the float64 ``|<x, q>|`` of the stored f32
+    point plus the f32 slack
+
+        (d + 4) u ||q|| ||x|| + sqrt(2 (d + 2) u) ||q|| xsin,
+
+    u = 2**-24: ``<q, c>`` carries up to d u ||q|| ||c|| of rounding, which
+    moves ``q_cos`` by d u ||q||, and ``q_sin = sqrt(||q||^2 - q_cos^2)``
+    turns an error of 2 (d + 2) u ||q||^2 in its radicand into up to
+    sqrt(2 (d + 2) u) ||q|| when q is nearly along c."""
+    x, qn = _collinear(seed)
+    tree = tbt.build_tree(x, n0=32, seed=seed)
+    q = _t(qn)
+    L, n0, d = tree.num_leaves, tree.n0, tree.d
+    leaf = torch.arange(L * n0) // n0
+    valid = tree.point_ids >= 0
+    qnorm = torch.sqrt(torch.sum(q * q, dim=1, keepdim=True))
+    ipc = q @ tree.leaf_centers.T
+    qcos, qsin = tbounds.query_angle_terms(ipc, qnorm, tree.leaf_cnorm[None])
+    cb = tbounds.point_cone_bound(qcos[:, leaf], qsin[:, leaf],
+                                  tree.xcos[None], tree.xsin[None])
+    true = np.abs(qn.astype(np.float64) @ tree.points.numpy().astype(
+        np.float64).T)
+    xnorm = np.linalg.norm(tree.points.numpy().astype(np.float64), axis=1)
+    qn64 = np.linalg.norm(qn.astype(np.float64), axis=1)[:, None]
+    slack = ((d + 4) * U32 * qn64 * xnorm
+             + np.sqrt(2 * (d + 2) * U32) * qn64
+             * tree.xsin.numpy().astype(np.float64))
+    over = (cb.numpy().astype(np.float64) - true - slack)[:, valid.numpy()]
+    assert over.max() <= 0, float(over.max())
+    # the data reach the regime the slack covers: leaves whose points sit
+    # within 1e-2 rad of their centre, and bounds that prune
+    assert np.median(tree.xsin.numpy()[valid.numpy()]
+                     / xnorm[valid.numpy()]) < 1e-2
+    assert (cb.numpy()[:, valid.numpy()] > 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("k", [1, 10])
+def test_searches_exact_on_collinear_leaves(seed, k):
+    """``sweep``, ``dfs`` and K1's plain version (``p2h_sweep_ref``) on
+    trees over nearly collinear leaves answer as the float64 oracle does
+    (``assert_exact_topk``: ids apart from ties judged at float64)."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels.ref import p2h_sweep_ref
+
+    x, qn = _collinear(seed)
+    tree = tbt.build_tree(x, n0=32, seed=seed)
+    pts = tbt.append_ones(x)
+    ref_i = oracle(pts, qn, k + 1)[1]
+    q = _t(qn)
+    answers = {"sweep": tsearch.sweep_search(tree, q, k)[:2],
+               "dfs": tsearch.dfs_search(tree, q, k)[:2]}
+    opnds, b0 = tops.prepare_operands(tree, q, bq=8)
+    rd, ri, _ = p2h_sweep_ref(**opnds, k=k, bq=8)
+    answers["p2h_sweep_ref"] = (rd[:b0], ri[:b0])
+    for name, (d_, i_) in answers.items():
+        try:
+            texact.assert_exact_topk(d_.numpy(), i_.numpy(), ref_i,
+                                     _t(pts), q)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None

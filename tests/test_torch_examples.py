@@ -70,3 +70,19 @@ def test_serve_batch_serves_every_query():
     bi = np.stack([i for _, i in out["results"]])
     assert np.isfinite(bd).all() and bd.shape == (24, 10)
     assert_topk_parity(bd, bi, od, oi, nxt)
+
+
+def test_train_lm_example_learns_and_restarts(tmp_path):
+    """The port's LM training example at a few steps on the host, with its
+    injected crash: it resumes once and the loss falls."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = _load("train_lm_torch").main(
+            ["--steps", "24", "--batch", "4", "--seq", "32", "--device",
+             "cpu", "--demo-crash", "--ckpt", str(tmp_path / "ckpt")])
+    finally:
+        torch.set_num_threads(threads)
+    assert out["restarts"] == 1
+    assert out["last_loss"] < out["first_loss"]
+    assert out["history"][-1]["step"] == 23

@@ -827,3 +827,82 @@ def test_sharded_forest_on_a_card_mesh(cuda):
     ed, ei = eng.query(q, 10)
     assert eng.stats()["routes"] == {"sharded": 1}
     assert np.array_equal(ed, bd) and np.array_equal(ei, bi)
+
+
+# ------------------------------------------------- the LM substrate (slice 9)
+def _plain_attention(q, k, v, scale):
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    kr = k.float().repeat_interleave(G, dim=2)
+    vr = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kr)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vr)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 2e-5),
+                                         (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("S,chunk", [(512, 128), (300, 128)])
+def test_lm_attention_on_card_matches_plain(cuda, dtype, bound, S, chunk):
+    """``gqa_attention``'s forward and its ``autograd.Function`` backward
+    on the card against dense attention written plainly (normwise: f32
+    sums in another order; in bf16 the probabilities, outputs and
+    gradients are rounded to bf16)."""
+    from repro_torch.models.attention import gqa_attention
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, ct = (torch.randn(s, generator=gen).to(cuda) for s in (
+        (2, S, 8, 64), (2, S, 2, 64), (2, S, 2, 64), (2, S, 8, 64)))
+    q, k, v = (t.to(dtype).requires_grad_(True) for t in (q, k, v))
+    pos = torch.arange(S, device=cuda)
+    got = gqa_attention(q, k, v, pos, pos, causal=True, q_chunk=chunk,
+                        kv_chunk=chunk, compute_dtype=dtype)
+    want = _plain_attention(q, k, v, 1 / 8)
+    gg = torch.autograd.grad((got.float() * ct).sum(), (q, k, v))
+    gw = torch.autograd.grad((want * ct).sum(), (q, k, v))
+    assert got.dtype == dtype and got.device.type == "cuda"
+    for a, b in zip((got, *gg), (want, *gw)):
+        a, b = a.detach().float(), b.detach().float()
+        assert float((a - b).abs().max() / b.abs().max()) <= bound
+
+
+def test_lm_train_step_on_card_matches_host(cuda):
+    """One ``make_train_step`` step of the same smoke model (the same seed
+    draws the same parameters on both devices) on the same batch, f32
+    compute: the card's loss, gradient norm and parameters against the
+    host's."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import get_config
+    from repro_torch.models.transformer import StackedLM
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                              compute_dtype=torch.float32)
+    batch = SyntheticLMDataset(vocab=cfg.vocab, seq=64, global_batch=4,
+                               seed=0).global_batch_arrays(0)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = StackedLM(cfg, seed=0, device=dev)
+        step = make_train_step(model, cfg, lr_fn=lambda s: cosine_schedule(
+            s, peak_lr=1e-3, warmup_steps=1, total_steps=2))
+        m = step(adamw_init(dict(model.named_parameters())),
+                 {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[str(dev)] = ({k: float(x) for k, x in m.items()},
+                         [p.detach().cpu() for p in model.parameters()])
+    (mh, ph), (mc, pc) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(mc["loss"], mh["loss"], rtol=1e-5)
+    np.testing.assert_allclose(mc["grad_norm"], mh["grad_norm"], rtol=1e-4)
+    for a, b in zip(pc, ph):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=2 * mh["lr"])
+
+
+def test_lm_entry_points_default_to_the_card(cuda):
+    from repro_torch.models.registry import get_model
+
+    model, cfg = get_model("llama3.2-1b", smoke=True)
+    assert model.device.type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -59,7 +59,16 @@ def test_port_imports_neither_jax_nor_repro():
                    "repro_torch.kernels.stacked_sweep",
                    "repro_torch.launch.mesh",
                    "repro_torch.parallel.collectives",
-                   "repro_torch.stream.meshcheck"):
+                   "repro_torch.stream.meshcheck",
+                   "repro_torch.models.layers",
+                   "repro_torch.models.attention",
+                   "repro_torch.models.transformer",
+                   "repro_torch.models.registry",
+                   "repro_torch.models.convert",
+                   "repro_torch.configs.llama3_2_1b",
+                   "repro_torch.optim.adamw", "repro_torch.optim.grad",
+                   "repro_torch.optim.schedule",
+                   "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert module in names, module
 
 
@@ -125,6 +134,34 @@ def test_baseline_modules_import_alone(module, names):
     assert names <= set(ast.literal_eval(out.stdout))
 
 
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.models.layers", {"ParamInit", "rmsnorm", "rope",
+                                   "apply_rope", "mlp_apply", "dense"}),
+    ("repro_torch.models.attention", {"gqa_attention", "attn_apply",
+                                      "attn_init"}),
+    ("repro_torch.models.transformer", {"StackedLM", "ArchConfig",
+                                        "LayerSpec"}),
+    ("repro_torch.models.registry", {"get_model", "get_config", "ARCH_IDS",
+                                     "MODEL_FAMILIES"}),
+    ("repro_torch.models.convert", {"from_reference_arrays",
+                                    "to_reference_arrays"}),
+    ("repro_torch.configs", {"get_config", "get_model"}),
+    ("repro_torch.optim", {"adamw_init", "adamw_update", "cosine_schedule",
+                           "clip_by_global_norm", "ef_compress_grads"}),
+    ("repro_torch.data.pipeline", {"SyntheticLMDataset",
+                                   "global_batch_for_step"}),
+    ("repro_torch.launch.steps", {"make_train_step"}),
+    ("repro_torch.launch.train", {"TrainConfig", "train", "main"}),
+])
+def test_lm_modules_import_alone(module, names):
+    """Each module of the LM substrate imports on its own, first in a
+    fresh interpreter, with ``jax`` and ``repro`` unimportable."""
+    out = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=SRC,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert names <= set(ast.literal_eval(out.stdout))
+
+
 _EXAMPLE = r'''
 import runpy
 import sys
@@ -152,7 +189,8 @@ assert callable(mod["main"])
 
 @pytest.mark.parametrize("example", ["quickstart_torch",
                                      "active_learning_torch",
-                                     "serve_batch_torch"])
+                                     "serve_batch_torch",
+                                     "train_lm_torch"])
 def test_port_examples_import_neither_jax_nor_repro(example):
     """The port's examples load (their module body, not ``main``) with
     ``jax`` and ``repro`` unimportable."""

@@ -204,7 +204,8 @@ def test_split_and_merge_bit_exact_under_concurrent_queries(monkeypatch):
         new = idx.split_shard(0)
     finally:
         done.set()
-        th.join()
+        th.join(timeout=120)
+    assert not th.is_alive(), "the query storm did not stop within 120 s"
     assert not errors, errors[0]
     assert seen[0] > 0
     assert new == 2 and idx.num_shards == 3
