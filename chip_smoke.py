@@ -36,7 +36,13 @@ The main paths, each through the entry points a user calls:
     (f32 parameters, bf16 compute) trained through ``make_train_step`` on
     ``SyntheticLMDataset`` batches.  It owes no hand-written kernel (the
     JAX package's LM code reaches no ``pallas_call``), so the ``kernels``
-    line stays K1 and K2.
+    line stays K1 and K2;
+  * slice 10, the LM substrate's other families in training:
+    granite-moe-3b-a800m (MoE) and mamba2-780m (Mamba-2) at full width and
+    whisper-tiny (encoder-decoder) through ``make_train_step``, every new
+    family's smoke config through ``train()`` on the card against the
+    host, and the two-block local attention of recurrentgemma.  No
+    ``pallas_call`` either: no kernel joins the line.
 
 Phases, one line each:
 
@@ -88,7 +94,7 @@ Phases, one line each:
                 k-th neighbours of cached queries deleted and the next warm
                 answer held to the oracle over the live set; q/s, p50 and
                 p99 per batch at slot_size 8, 64 and 1024 with launches per
-                batch; the latency of one batch at occupancy 1 and 2 on the
+                batch; the latency of one batch at occupancy 1 on the
                 ``dfs`` route beside the kernel route; a fresh
                 125,000-point ``MutableP2HIndex`` with a ``ShardWal`` under
                 ``build/``: acknowledged inserts and deletes, ``save``, more
@@ -167,6 +173,24 @@ Phases, one line each:
                 smoke width, f32 compute, on the card against the host
                 (the first 4 losses rtol 1e-4) and resumed after an
                 injected crash (final loss rtol 1e-5)
+14. lm-families (right after 13, also beside nvcc) (a) granite-moe at
+                full width, 10 steps of 4 x 2048 tokens: the step-0
+                cross-entropy within 0.5 of ln V, finite losses, aux and
+                grad norms; step time, tokens/s, ``max_memory_allocated``,
+                6 N_active T over the bf16 peak, the load and z losses,
+                the share of assignments dropped by capacity, and a
+                ``torch.profiler`` split of a step by the model code that
+                launched each kernel (attention, grouped expert products,
+                dispatch/combine, SSD intra-/inter-chunk, the rest); (b)
+                mamba2 the same; (c) whisper-tiny, 1,500 frames and 448
+                decoder tokens a row; (d) the six new archs' smoke configs
+                through ``train()`` at f32, card against host over 4 steps
+                (rtol 1e-4, or twice the host's own spread under a 2e-7
+                change of every parameter where that is larger); (e)
+                ``local_attention`` against ``gqa_attention(window=)`` at
+                recurrentgemma's attention shape (S 8192, 16/1 heads,
+                head_dim 256, window 2048), f32 and bf16, timed beside SDPA
+                with a band mask
   8. kernels    one JSON line, after every phase: per kernel its launches
                 (by phase), error and times
 
@@ -209,7 +233,7 @@ PEAK_OPS = {"f32": PEAK_F32_FLOPS, "bf16": 989e12, "int8": 1979e12}
 ROUNDS, FRESH, DELETES, SEQ_QUERIES = 8, 4096, 10_000, 64
 # serving: the hot trace's distinct normals, the slot sizes timed, the
 # occupancies timed on the dfs route; the durable-writes index and its ops
-HOT, SLOTS, OCCUPANCIES = 256, (8, 64, 1024), (1, 2)
+HOT, SLOTS, OCCUPANCIES = 256, (8, 64, 1024), (1,)
 WAL_N, WAL_INSERTS, WAL_DELETES, WAL_MORE = 125_000, 4096, 1000, 1024
 # the sharded index: hashed shards (one sealed segment each), the slot
 # sizes it is served at, the failing shard sets of the degraded checks;
@@ -234,6 +258,16 @@ LM_SMOKE_STEPS, LM_CRASH_AT = 30, 17
 # change of the host's own embedding moves its loss by 2.4e-5 at step 5
 # and 1.2e-3 at step 10), so the runs part at any tolerance
 LM_PARITY_STEPS = 4
+# the LM substrate's other families (phase 14): the MoE, SSM and
+# encoder-decoder archs trained at full width (4 x LM_SEQ tokens a step,
+# Whisper's decoder at its 448-token target length), their steps and the
+# first warm one; the archs held card against host at smoke width; the
+# sequence of the local attention's check (recurrentgemma's other shapes)
+FAM_MOE, FAM_SSM, FAM_ED = "granite-moe-3b-a800m", "mamba2-780m", \
+    "whisper-tiny"
+FAM_STEPS, FAM_WARM, FAM_DEC_SEQ, FAM_LOCAL_SEQ = 10, 3, 448, 8192
+FAM_SMOKE = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e", "mamba2-780m",
+             "recurrentgemma-9b", "whisper-tiny", "phi-3-vision-4.2b")
 SRC = Path(__file__).resolve().parent / "src"
 BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
@@ -348,10 +382,11 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         wal_more=WAL_MORE, shards=SHARDS, shard_slots=SHARD_SLOTS,
         failing=FAILING, dur_n=DUR_N, dur_shards=DUR_SHARDS,
         dur_writes=DUR_WRITES, dur_more=DUR_MORE, lift_n=LIFT_N,
-        budgets=BUDGETS, lm_kw=None) -> dict:
+        budgets=BUDGETS, lm_kw=None, lm_fam_kw=None) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
     size; ``sweep_n`` cuts slice 1's depth alone, ``lm_kw`` is passed to
-    :func:`run_lm`); returns the kernels record."""
+    :func:`run_lm` and ``lm_fam_kw`` to :func:`run_lm_families`); returns
+    the kernels record."""
     import torch
 
     from repro_torch.kernels import _build
@@ -395,6 +430,9 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
     t0 = time.perf_counter()
     run_lm(device, card, reps=reps, **(lm_kw or {}))
     log("lm", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    run_lm_families(device, card, reps=reps, **(lm_fam_kw or {}))
+    log("lm-families", phase_seconds=f"{time.perf_counter() - t0:.1f}")
     stacked = build_stacked(device, n=n, d=d, queries=queries, n0=n0,
                             fresh=fresh, deletes=deletes)
     k1, frozen = run_sweep(device, card, n=sweep_n or n, d=d,
@@ -1167,7 +1205,7 @@ def run_serve(device, card, frozen: dict, mutable: dict, *, hot, slots,
                     for kn, v in n_launch.items()),
                 cache_hits=st["lambda_cache"]["hits"])
 
-    # one batch at occupancy 1 and 2: the dfs route beside the kernel route
+    # one batch at each occupancy: the dfs route beside the kernel route
     for name, idx, route in (("frozen", index, "pallas"),
                              ("mutable", m, "stacked")):
         for occ in OCCUPANCIES:
@@ -2664,6 +2702,425 @@ def run_lm_smoke(device, card, *, steps, crash_at) -> None:
                              f"loss {crash_loss[-1]} against "
                              f"{card_loss[-1]}")
     shutil.rmtree(root, ignore_errors=True)
+
+
+def free_device(device) -> None:
+    """Drop what the last phase left: collect, empty the allocator's cache
+    and start a new peak."""
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def run_lm_families(device, card, *, reps, moe_cfg=None, ssm_cfg=None,
+                    ed_cfg=None, batch=LM_BATCH, seq=LM_SEQ,
+                    dec_seq=FAM_DEC_SEQ, steps=FAM_STEPS, warm=FAM_WARM,
+                    smoke_archs=FAM_SMOKE, local_seq=FAM_LOCAL_SEQ,
+                    local_window=None) -> None:
+    """Phase 14, the LM substrate's other families: (a) ``FAM_MOE`` and (b)
+    ``FAM_SSM`` at full width (or ``moe_cfg``/``ssm_cfg``, cuts of them
+    for a rehearsal) trained through ``make_train_step``, (c) ``FAM_ED``
+    (the encoder-decoder), (d) every new arch's smoke config through
+    ``train()`` on the card against the host, (e) the two-block local
+    attention at recurrentgemma's attention shape (``local_window``
+    replaces its window for a rehearsal)."""
+    import torch
+
+    from repro_torch.models.registry import get_config
+
+    for arch, cfg, n in ((FAM_MOE, moe_cfg, seq), (FAM_SSM, ssm_cfg, seq),
+                         (FAM_ED, ed_cfg, dec_seq)):
+        run_family_train(device, card, arch, cfg or get_config(arch),
+                         batch=batch, seq=n, steps=steps, warm=warm)
+    free_device(device)
+    run_family_smoke(device, card, smoke_archs)
+    run_local_attention(device, card, seq=local_seq, reps=reps,
+                        window=local_window)
+    free_device(device)
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the LM families' phase turned TF32 on")
+
+
+def count_drops(fn):
+    """``fn()`` with every ``moe_apply`` also returning its pre-drop
+    expert counts: (fn's result, assignments dropped by capacity, all
+    assignments).  Without a carried count an expert keeps min(count, C)
+    of a row's assignments."""
+    from repro_torch.models import moe
+
+    plain, seen = moe.moe_apply, [0, 0]
+
+    def recording(p, x, **kw):
+        out, aux, cnt = plain(p, x, return_counts=True, **kw)
+        cap = moe.moe_capacity(x.shape[1], kw["top_k"], p.router.shape[1],
+                               kw["capacity_factor"])
+        seen[0] += int((cnt - cap).clamp_min(0).sum())
+        seen[1] += int(cnt.sum())
+        return out, aux
+
+    moe.moe_apply = recording
+    try:
+        out = fn()
+    finally:
+        moe.moe_apply = plain
+    return out, seen[0], seen[1]
+
+
+def active_params(cfg, n_params: int) -> int:
+    """Parameters a token passes through: all but the experts it is not
+    routed to (top_k of num_experts in each MoE layer)."""
+    if not cfg.num_experts:
+        return n_params
+    per_expert = cfg.d_model * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    moe_layers = sum(spec.moe and spec.mlp for spec in
+                     list(cfg.pattern) * cfg.n_periods
+                     + list(cfg.tail_specs))
+    return n_params - moe_layers * (cfg.num_experts - cfg.top_k) * per_expert
+
+
+def run_family_train(device, card, arch, cfg, *, batch, seq, steps,
+                     warm) -> None:
+    """(a)-(c) One family on the card: ``arch``'s model (or a cut of it),
+    f32 parameters and the config's compute dtype, AdamW under the cosine
+    schedule, ``steps`` steps of ``SyntheticLMDataset`` batches of batch x
+    seq tokens with the model's seeded extras."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import lm_loss, make_train_step
+    from repro_torch.models.registry import build_model, get_config, get_model
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    free_device(device)
+    t0 = time.perf_counter()
+    if cfg == get_config(arch):  # the entry point a user calls
+        model, _ = get_model(arch, seed=SEED, device=device)
+    else:  # a cut of it, for a rehearsal on the host
+        model = build_model(cfg, seed=SEED, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    if any(p.device != device for p in model.parameters()):
+        raise AssertionError(f"{arch}: a parameter is off {device}")
+    n_params = model.param_count()
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq=seq, global_batch=batch,
+                            seed=SEED)
+    batches = []
+    for s in range(steps):
+        arrays = ds.global_batch_arrays(s)
+        arrays.update(ds.extra_arrays(s, cfg))
+        batches.append({k: torch.from_numpy(v).to(device)
+                        for k, v in arrays.items()})
+    with torch.no_grad():
+        (loss0, (nll0, aux0)), dropped, assigned = count_drops(
+            lambda: lm_loss(model, cfg, batches[0]))
+    loss0, nll0, ln_v = float(loss0), float(nll0), math.log(cfg.vocab)
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(model, cfg, lr_fn=lambda s: cosine_schedule(
+        s, peak_lr=1e-3, warmup_steps=5, total_steps=steps))
+    runs = [timed_call(lambda b=b: step(opt, b), device) for b in batches]
+    ms = [t for _, t in runs]
+    loss = [float(m["loss"]) for m, _ in runs]
+    gnorm = [float(m["grad_norm"]) for m, _ in runs]
+    load = [float(m["aux_load"]) for m, _ in runs]
+    zl = [float(m["aux_z"]) for m, _ in runs]
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device.type == "cuda" else None)
+    med = statistics.median(ms[warm:])
+    tokens = batch * seq
+    n_active = active_params(cfg, n_params)
+    flops = 6 * n_active * tokens
+    log("lm-family", card=repr(card), arch=cfg.name, params=n_params,
+        config_param_count=cfg.param_count(), active_params=n_active,
+        dtypes=f"{cfg.param_dtype}/{cfg.compute_dtype}", remat=cfg.remat,
+        batch=batch, seq=seq, steps=steps, init_s=f"{init_s:.1f}",
+        loss0=f"{loss0:.4f}", nll0=f"{nll0:.4f}", ln_vocab=f"{ln_v:.4f}",
+        loss_first=f"{loss[0]:.4f}", loss_last=f"{loss[-1]:.4f}",
+        aux_load0=f"{float(aux0[0]):.4f}", aux_z0=f"{float(aux0[1]):.4f}",
+        drop_share=(f"{dropped / assigned:.4f}" if assigned else "no MoE"),
+        dropped=dropped, assignments=assigned,
+        grad_norm_first=f"{gnorm[0]:.4g}",
+        grad_norm_last=f"{gnorm[-1]:.4g}", step_ms_first=f"{ms[0]:.1f}",
+        step_ms_median=f"{med:.1f}", warm_steps=len(ms[warm:]),
+        step_ms_min=f"{min(ms[warm:]):.1f}",
+        step_ms_max=f"{max(ms[warm:]):.1f}",
+        tokens_per_s=f"{tokens / (med / 1e3):.0f}",
+        max_memory_allocated_gib=("not measured" if peak is None
+                                  else f"{peak:.2f}"),
+        flops_6NT_active=f"{flops:.4e}",
+        bf16_peak_share=(f"{flops / (med / 1e3) / PEAK_OPS['bf16']:.4f}"
+                         if device.type == "cuda" else "not measured"),
+        peak_used="989e12 bf16 dense (H100 SXM data sheet, 700 W)")
+    log("lm-family", arch=cfg.name,
+        losses=",".join(f"{x:.4f}" for x in loss),
+        aux_load=",".join(f"{x:.4f}" for x in load),
+        aux_z=",".join(f"{x:.4f}" for x in zl),
+        step_ms=",".join(f"{x:.1f}" for x in ms))
+    family_profile(lambda: step(opt, batches[-1]), device, card, cfg.name)
+    if not abs(nll0 - ln_v) < 0.5:  # the cross-entropy, without the aux
+        raise AssertionError(f"{cfg.name}: step-0 cross-entropy {nll0} is "
+                             f"not within 0.5 of ln V = {ln_v}")
+    if not all(math.isfinite(x) for x in loss + gnorm + load + zl):
+        raise AssertionError(f"{cfg.name}: non-finite loss, aux or "
+                             f"grad_norm: {loss} {gnorm} {load} {zl}")
+    del model, opt, step, batches, runs
+    free_device(device)
+
+
+FAMILY_REST = "rest (projections, MLPs, norms, embedding, loss)"
+FAMILY_SPANS = {  # the model code's profiler ranges (``layers.span``)
+    "attention": "attention",
+    "moe.experts": "grouped expert products",
+    "moe.dispatch": "dispatch/combine (router, top-k, argsort, scatter, "
+                    "gather)",
+    "moe.shared": FAMILY_REST,
+    "ssd.intra": "SSD intra-chunk products",
+    "ssd.state": "SSD inter-chunk state",
+    "rglru.scan": "RG-LRU scan",
+    "optim.update": "optimizer (clipping, AdamW)",
+}
+
+
+def family_profile(fn, device, card, name: str) -> None:
+    """One more step under ``torch.profiler``: each device kernel's time
+    goes to the innermost of the model code's named ranges
+    (``FAMILY_SPANS``) open when its operator ran -- or, for an operator
+    of the backward pass outside them, the range of the forward operator
+    whose autograd node it runs (matched by sequence number).  On the host
+    the operators' own CPU time stands in for kernel time (a rehearsal of
+    the attribution, not a device metric)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        _, ms = timed_call(fn, device)
+    # one sweep a thread in order of start time, with a stack of the open
+    # contexts: the model code's ranges; operators that record an autograd
+    # node (a forward operator, also one recomputed under remat inside the
+    # backward), each in the innermost range open around it; and the
+    # backward's evaluate_function events, which stand for the forward
+    # operator of their sequence number
+    threads = {}
+    for e in prof.events():
+        threads.setdefault(e.thread, []).append(e)
+    by_seq, owners, ranges = {}, [], 0
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e.time_range.start, -e.time_range.end))
+        stack = []
+        for e in evs:
+            while stack and stack[-1][0] <= e.time_range.start:
+                stack.pop()
+            top = stack[-1][1] if stack else FAMILY_REST
+            seq = getattr(e, "sequence_nr", -1)
+            own = FAMILY_SPANS.get(e.name)
+            if own is not None:
+                ranges += 1
+                ctx = own
+            elif e.name.startswith("autograd::engine::evaluate_function"):
+                # sequence numbers count per thread: key by the thread
+                # that ran the node's forward operator
+                ctx = (getattr(e, "fwd_thread", e.thread), seq)
+            elif seq is not None and seq >= 0:  # a forward operator
+                ctx = top if isinstance(top, str) else FAMILY_REST
+                by_seq.setdefault((e.thread, seq), ctx)
+            else:  # inside a forward operator or a backward function
+                ctx = top
+            stack.append((e.time_range.end, ctx))
+            if device.type == "cuda":
+                t = sum(k.duration for k in getattr(e, "kernels", ()))
+            else:  # the host rehearsal: the op's own CPU time
+                t = e.self_cpu_time_total if own is None else 0
+            if t:
+                owners.append((ctx, t))
+    split = {}
+    for ctx, t in owners:
+        cat = by_seq.get(ctx, FAMILY_REST) if isinstance(ctx, tuple) else ctx
+        split[cat] = split.get(cat, 0.0) + t / 1e3
+    busy = sum(split.values())
+    what = "device_busy_ms" if device.type == "cuda" else "host_op_ms"
+    if not busy:
+        log("lm-family-profile", card=repr(card), arch=name,
+            step_ms=f"{ms:.1f}",
+            **{what: "not measured (no events with time in the trace)"})
+        return
+    log("lm-family-profile", card=repr(card), arch=name, step_ms=f"{ms:.1f}",
+        **{what: f"{busy:.1f}"}, ranges=ranges,
+        idle_share=(f"{1 - busy / ms:.3f}" if device.type == "cuda"
+                    else "not measured"))
+    for cat, t in sorted(split.items(), key=lambda kv: -kv[1]):
+        log("lm-family-profile", arch=name, category=repr(cat),
+            ms=f"{t:.1f}", share=f"{t / busy:.3f}")
+
+
+def run_family_smoke(device, card, archs) -> None:
+    """(d) ``train()`` at each arch's smoke width with f32 compute, on the
+    card and on the host (the same seed draws the same parameters on
+    both), ``LM_PARITY_STEPS`` steps.  Each step's loss is held to the
+    host's within rtol 1e-4, or within twice the host's own displacement
+    when every parameter is multiplied by 1 +- 2e-7 (a rounding's size,
+    random signs) where that is larger: some of these configs move by
+    more than 1e-4 under such a change by step 3."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    root = BUILD / "chip_smoke_lm_families"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(smoke=True, steps=LM_PARITY_STEPS, global_batch=8, seq=64,
+              ckpt_every=LM_PARITY_STEPS, log_every=1, peak_lr=3e-3,
+              warmup=5, compute_dtype=torch.float32)
+
+    def losses(arch, tag, dev):
+        cfg = TrainConfig(arch=arch, ckpt_dir=str(root / arch / tag),
+                          device=dev, **kw)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, hist, _ = train(cfg)
+        if model.device.type != torch.device(dev).type:
+            raise AssertionError(f"{arch}: train() ran on {model.device}")
+        return np.array([h["loss"] for h in hist]), time.perf_counter() - t0
+
+    def nudged_losses(arch):
+        """The host's run again, every parameter times 1 +- 2e-7."""
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  compute_dtype=torch.float32)
+        model = build_model(cfg, seed=TrainConfig.seed, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
+                p.mul_(1 + 2e-7 * sign)
+        step = make_train_step(model, cfg, lr_fn=lambda s: cosine_schedule(
+            s, peak_lr=kw["peak_lr"], warmup_steps=kw["warmup"],
+            total_steps=kw["steps"]))
+        opt = adamw_init(dict(model.named_parameters()))
+        ds = SyntheticLMDataset(vocab=cfg.vocab, seq=kw["seq"],
+                                global_batch=kw["global_batch"],
+                                seed=TrainConfig.seed)
+        out = []
+        for s in range(kw["steps"]):
+            b = ds.global_batch_arrays(s)
+            b.update(ds.extra_arrays(s, cfg))
+            m = step(opt, {k: torch.from_numpy(v) for k, v in b.items()})
+            out.append(float(m["loss"]))
+        return np.array(out)
+
+    for arch in archs:
+        card_loss, card_s = losses(arch, "card", device)
+        host_loss, host_s = losses(arch, "host", "cpu")
+        spread = np.abs(nudged_losses(arch) - host_loss)
+        bar = np.maximum(1e-4 * np.abs(host_loss), 2 * spread)
+        diff = np.abs(card_loss - host_loss)
+        log("lm-family-smoke", card=repr(card), arch=f"{arch} smoke",
+            steps=LM_PARITY_STEPS, compute="f32", card_s=f"{card_s:.1f}",
+            host_s=f"{host_s:.1f}",
+            card_losses=",".join(f"{x:.6f}" for x in card_loss),
+            card_vs_host_rel=",".join(
+                f"{x:.2e}" for x in diff / np.abs(host_loss)),
+            host_nudge_rel=",".join(
+                f"{x:.2e}" for x in spread / np.abs(host_loss)),
+            bar_rel=",".join(f"{x:.2e}" for x in bar / np.abs(host_loss)))
+        if not (diff <= bar).all():
+            raise AssertionError(f"{arch}: train() on the card against the "
+                                 f"host: {card_loss} vs {host_loss} (bar "
+                                 f"{bar})")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def run_local_attention(device, card, *, seq, reps, window=None) -> None:
+    """(e) ``local_attention`` (the two-block path, autograd through torch
+    operations) against ``gqa_attention(window=)`` (every block of the
+    double-chunked schedule, masked) at recurrentgemma's attention shape
+    -- batch 1, 16 heads on one KV head, head_dim 256, window 2048 -- in
+    f32 and bf16, forward and gradients, normwise; both timed beside the
+    library's fused attention with a band mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import gqa_attention, local_attention
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("recurrentgemma-9b")
+    W = window or cfg.pattern[2].window
+    B, H, Hkv, D, C = 1, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.kv_chunk
+    gen = torch.Generator().manual_seed(SEED)
+    base = [torch.randn(shape, generator=gen).to(device)
+            for shape in ((B, seq, H, D), (B, seq, Hkv, D), (B, seq, Hkv, D),
+                          (B, seq, H, D))]
+    pos = torch.arange(seq, device=device)
+    idx = torch.arange(seq, device=device)
+    band = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] < W)
+    bound = {"f32": 2e-5, "bf16": 3e-2}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = (t.to(dt).requires_grad_(True) for t in base[:3])
+        ct = base[3].to(dt)
+
+        def local():
+            return local_attention(q, k, v, pos, window=W, compute_dtype=dt)
+
+        def windowed():
+            return gqa_attention(q, k, v, pos, pos, causal=True, window=W,
+                                 q_chunk=C, kv_chunk=C, compute_dtype=dt)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.repeat_interleave(H // Hkv, dim=2
+                                                       ).transpose(1, 2),
+                v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2),
+                attn_mask=band).transpose(1, 2)
+
+        def fwd_bwd(fn):
+            out = fn()
+            return out, torch.autograd.grad((out.float() * ct.float()).sum(),
+                                            (q, k, v))
+
+        got, want = fwd_bwd(local), fwd_bwd(windowed)
+        errs = {}
+        for what, g, w in zip(("out", "dq", "dk", "dv"), (got[0], *got[1]),
+                              (want[0], *want[1])):
+            g, w = g.detach().float(), w.detach().float()
+            errs[what] = float((g - w).abs().max() / w.abs().max())
+        del got, want
+        times = {}
+        for key, fn in (("local", local), ("windowed", windowed),
+                        ("sdpa", sdpa)):
+            with torch.no_grad():
+                fn()
+                times[f"{key}_fwd_ms"] = timed_ms(fn, reps, device)
+            fwd_bwd(fn)
+            times[f"{key}_fwd_bwd_ms"] = timed_ms(lambda fn=fn: fwd_bwd(fn),
+                                                  reps, device)
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if device.type == "cuda" else None)
+        log("lm-local-attention", card=repr(card), dtype=name, batch=B,
+            seq=seq, heads=f"{H}/{Hkv}", head_dim=D, window=W, chunk=C,
+            **{k: f"{t:.3f}" for k, t in times.items()},
+            **{f"err_{k}": f"{e:.2e}" for k, e in errs.items()},
+            bound=bound[name],
+            max_memory_allocated_gib=("not measured" if peak is None
+                                      else f"{peak:.2f}"))
+        if not max(errs.values()) <= bound[name]:
+            raise AssertionError(f"local attention {name} against the "
+                                 f"windowed one: {errs} > {bound[name]}")
+        del q, k, v, ct
+        free_device(device)
 
 
 def main() -> int:

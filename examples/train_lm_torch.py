@@ -1,9 +1,11 @@
 """End-to-end LM training on the PyTorch + CUDA port: trains a smoke-scale
-model with checkpointing and, with ``--demo-crash``, injects a failure
-mid-run and resumes from the last checkpoint.
+model of any architecture (``--arch``: dense, MoE, Mamba-2, RG-LRU hybrid,
+VLM, Whisper) with checkpointing and, with ``--demo-crash``, injects a
+failure mid-run and resumes from the last checkpoint.
 
     PYTHONPATH=src python examples/train_lm_torch.py --steps 300             # card
     PYTHONPATH=src python examples/train_lm_torch.py --device cpu --demo-crash
+    PYTHONPATH=src python examples/train_lm_torch.py --device cpu --arch mamba2-780m
 """
 import argparse
 import os
@@ -11,11 +13,12 @@ import shutil
 import tempfile
 
 from repro_torch.launch.train import TrainConfig, train
+from repro_torch.models.registry import ARCH_IDS
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCH_IDS)
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

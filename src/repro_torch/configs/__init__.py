@@ -2,9 +2,9 @@
 package's ``configs/``: ``CONFIG`` (full size) and ``SMOKE`` (a reduced
 config of the same family, for the CPU tests).
 
-Only the dense decoder-only configs are ported (ROADMAP.md, queue 1, item
-15.1); :func:`get_config` raises ``NotImplementedError`` for the others.
-``SHAPES`` and ``shape_applicable`` belong to placement (item 15.4).
+Every architecture of the JAX package is here.  ``SHAPES`` and
+``shape_applicable`` belong to placement (ROADMAP.md, queue 1, item
+15.4).
 """
 from repro_torch.models.registry import (  # noqa: F401
     ARCH_IDS,

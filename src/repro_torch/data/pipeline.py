@@ -62,6 +62,26 @@ class SyntheticLMDataset:
         """The whole global batch of ``step``."""
         return global_batch_for_step(self, step, 1)
 
+    def extra_arrays(self, step: int, model_cfg) -> dict:
+        """The model's extra inputs at ``step``, N(0, 1) f32 stand-ins for
+        the stubbed frontends: ``image_embeds`` (global_batch,
+        vlm_patches, d_model) for a VLM, ``frames`` (global_batch,
+        enc_frames, d_model) for an encoder-decoder, nothing for the
+        others.  A pure function of (seed, step), like the tokens (the JAX
+        package's ``launch/train.py`` draws them from one generator a run,
+        so a restarted run draws others)."""
+        rng = _rng_for(self.seed + 1, step)
+        out = {}
+        for key, n, on in (("image_embeds", model_cfg.vlm_patches,
+                            model_cfg.vlm_patches),
+                           ("frames", model_cfg.enc_frames,
+                            model_cfg.enc_dec)):
+            if on:
+                out[key] = rng.normal(size=(
+                    self.global_batch, n, model_cfg.d_model)
+                ).astype(np.float32)
+        return out
+
 
 def global_batch_for_step(ds: SyntheticLMDataset, step: int,
                           num_shards: int):

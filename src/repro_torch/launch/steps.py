@@ -1,9 +1,11 @@
 """The training step of the LM substrate -- the PyTorch counterpart of the
 JAX package's ``launch/steps.py::make_train_step``.
 
-The step's loss is the streaming cross-entropy ``lse - gold`` with the
-logits upcast to f32 inside the log-sum-exp, plus the MoE auxiliary terms
-(zero for the dense family).  Gradients accumulate in f32 over
+The step's loss is the streaming cross-entropy ``lse - gold`` over the
+text positions, with the logits upcast to f32 inside the log-sum-exp, plus
+the MoE auxiliary terms (zero for the other families).  The model's extra
+inputs ride in the batch: ``image_embeds`` for a VLM, ``frames`` for an
+encoder-decoder.  Gradients accumulate in f32 over
 ``n_micro`` micro-batches, are clipped to a global norm, and feed AdamW
 under the learning-rate schedule ``lr_fn(step count)``.
 
@@ -16,18 +18,31 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import span
 from repro_torch.optim import adamw_update, clip_by_global_norm
 from repro_torch.optim.adamw import OptState
 
-__all__ = ["make_train_step", "lm_loss"]
+__all__ = ["make_train_step", "lm_loss", "model_extras"]
+
+
+def model_extras(cfg, batch) -> dict:
+    """The keyword inputs ``model.apply`` takes from ``batch`` beside the
+    tokens: ``image_embeds`` (VLM), ``frames`` (encoder-decoder)."""
+    kw = {}
+    if cfg.vlm_patches and "image_embeds" in batch:
+        kw["image_embeds"] = batch["image_embeds"]
+    if cfg.enc_dec and "frames" in batch:
+        kw["frames"] = batch["frames"]
+    return kw
 
 
 def lm_loss(model, cfg, batch):
     """(loss, (nll, aux)) of one batch: ``tokens`` and ``labels``, (B, S)
-    int tensors on the model's device."""
-    logits, aux = model.apply(batch["tokens"])
+    int tensors on the model's device, and the extras of
+    :func:`model_extras`."""
+    logits, aux = model.apply(batch["tokens"], **model_extras(cfg, batch))
     labels = batch["labels"].long()
-    logits = logits[:, -labels.shape[1]:]
+    logits = logits[:, -labels.shape[1]:]  # a VLM's prefix comes first
     # streaming xent: lse - gold; the f32 upcast lives only inside the
     # log-sum-exp
     lse = torch.logsumexp(logits.float(), dim=-1)
@@ -43,7 +58,8 @@ def make_train_step(model, cfg, *, lr_fn, grad_clip: float = 1.0,
     ``model``'s parameters and ``opt`` (an :class:`OptState` from
     ``adamw_init(dict(model.named_parameters()))``), both in place.
 
-    ``batch`` holds ``tokens`` and ``labels`` on the model's device.
+    ``batch`` holds ``tokens`` and ``labels`` on the model's device, and
+    the model's extras (``image_embeds``, ``frames``).
     ``n_micro > 1`` splits the batch on dim 0 and accumulates the
     gradients in f32 (the same mathematics at 1/n_micro of the live
     activations).  The metrics are 0-d tensors on the device: ``loss``,
@@ -77,9 +93,11 @@ def make_train_step(model, cfg, *, lr_fn, grad_clip: float = 1.0,
             inv = 1.0 / n_micro
             grads = {k: g * inv for k, g in zip(names, acc)}
             loss, nll, aux = loss * inv, nll * inv, aux * inv
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
-        lr = lr_fn(opt.count)
-        adamw_update(grads, opt, params, lr=lr, weight_decay=weight_decay)
+        with span("optim.update"):
+            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            lr = lr_fn(opt.count)
+            adamw_update(grads, opt, params, lr=lr,
+                         weight_decay=weight_decay)
         return {"loss": loss, "nll": nll, "grad_norm": gnorm, "lr": lr,
                 "aux_load": aux[0], "aux_z": aux[1]}
 

@@ -15,7 +15,9 @@ Fault tolerance, as there:
 
 ``TrainConfig.device`` None means the card (raising without one);
 ``device="cpu"`` runs on the host.  ``compute_dtype`` overrides the
-config's compute dtype (None keeps it).
+config's compute dtype (None keeps it).  Every ``--arch`` trains; a VLM's
+batch carries seeded ``image_embeds`` and an encoder-decoder's seeded
+``frames`` (``SyntheticLMDataset.extra_arrays``).
 """
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.launch.platform import resolve_device
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models.registry import get_config
-from repro_torch.models.transformer import StackedLM
+from repro_torch.models.registry import ARCH_IDS, build_model, get_config
 from repro_torch.optim import adamw_init
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.runtime import (
@@ -67,10 +68,10 @@ class TrainConfig:
     compute_dtype: Any = None
 
 
-def _make_batch(ds, step, device):
+def _make_batch(ds, step, device, model_cfg):
     b = ds.global_batch_arrays(step)
-    return {k: torch.from_numpy(b[k]).to(device) for k in ("tokens",
-                                                          "labels")}
+    b.update(ds.extra_arrays(step, model_cfg))
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
 def train(cfg: TrainConfig, *, fail_at_step: int | None = None):
@@ -93,7 +94,7 @@ def train(cfg: TrainConfig, *, fail_at_step: int | None = None):
                                total_steps=cfg.steps)
 
     def make_state():
-        model = StackedLM(mcfg, seed=cfg.seed, device=device)
+        model = build_model(mcfg, seed=cfg.seed, device=device)
         params = dict(model.named_parameters())
         opt = adamw_init(params)
         start = 0
@@ -126,7 +127,7 @@ def train(cfg: TrainConfig, *, fail_at_step: int | None = None):
                     raise RuntimeError(
                         "injected failure (simulated node loss)")
                 t0 = time.perf_counter()
-                metrics = step_fn(opt, _make_batch(ds, step, device))
+                metrics = step_fn(opt, _make_batch(ds, step, device, mcfg))
                 last = step + 1 == cfg.steps
                 logged = step % cfg.log_every == 0 or last
                 if logged:  # reading the metrics waits for the step
@@ -157,7 +158,7 @@ def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m", choices=ARCH_IDS)
     ap.add_argument("--full", action="store_true",
                     help="full-size config (default: the smoke config)")
     ap.add_argument("--steps", type=int, default=200)

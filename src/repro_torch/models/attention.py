@@ -13,20 +13,24 @@ computed, masked ones included, so the arithmetic is the reference's.
 Inside the function the operands are laid out (B, H, S, D), so each block
 product is one batched matrix product over batch and heads.
 
-``local_attention``, cross-attention, ``decode_attention``, ``attn_decode``
-and ``init_kv_cache`` belong to later slices (ROADMAP.md, queue 1, items
-15.2 and 15.3).
+``local_attention`` is the two-block sliding window, plain torch operations
+under autograd; ``attn_apply`` takes it for a windowed self-attention layer
+and ``gqa_attention`` for causal, bidirectional and cross-attention.
+``decode_attention``, ``attn_decode`` and ``init_kv_cache`` are serving
+(ROADMAP.md, queue 1, item 15.3).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import ParamInit, apply_rope
+from repro_torch.models.layers import ParamInit, apply_rope, span
 
-__all__ = ["Attention", "attn_init", "gqa_attention", "attn_apply"]
+__all__ = ["Attention", "attn_init", "gqa_attention", "local_attention",
+           "attn_apply"]
 
 _NEG = -1e30
 
@@ -196,9 +200,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, pos_q, pos_k, out, lse = ctx.saved_tensors
         causal, window, nq, nk, Cq, Ck, cd = ctx.static
-        dq, dk, dv = _flash_bwd(do, q, k, v, pos_q, pos_k, out, lse,
-                                causal=causal, window=window, nq=nq, nk=nk,
-                                Cq=Cq, Ck=Ck, compute_dtype=cd)
+        with span("attention"):
+            dq, dk, dv = _flash_bwd(do, q, k, v, pos_q, pos_k, out, lse,
+                                    causal=causal, window=window, nq=nq,
+                                    nk=nk, Cq=Cq, Ck=Ck, compute_dtype=cd)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None)
 
@@ -242,10 +247,64 @@ def gqa_attention(q, k, v, pos_q, pos_k, *, causal=True, window=None,
         pos_k = torch.nn.functional.pad(pos_k, (0, padk), value=-1)
     nq, nk = q.shape[1] // Cq, k.shape[1] // Ck
     static = (causal, window, nq, nk, Cq, Ck, compute_dtype)
-    out = FlashAttention.apply(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), pos_q.contiguous(), pos_k, static)
+    with span("attention"):
+        out = FlashAttention.apply(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), pos_q.contiguous(), pos_k,
+            static)
     return out.transpose(1, 2)[:, :Sq]
+
+
+def local_attention(q, k, v, pos, *, window: int, scale=None,
+                    compute_dtype=torch.bfloat16):
+    """Exact sliding-window causal attention by the two-block trick: each
+    query block of W = min(window, S) positions attends to its own block
+    and the one before (2W keys) under the mask ``0 <= pq - pk < W``.  The
+    same results as ``gqa_attention(..., window=W)`` at ~2W/S of the
+    products.  Scores, softmax and ``p @ V`` accumulate in f32, the
+    probabilities cast to the compute dtype first; the gradient is
+    autograd's through these operations.
+
+    q: (B, S, Hq, D); k, v: (B, S, Hkv, D); pos: (S,).  Returns
+    (B, S, Hq, D) in the compute dtype.
+    """
+    with span("attention"):
+        B, S, Hq, D = q.shape
+        scale = scale if scale is not None else 1.0 / math.sqrt(D)
+        k = _repeat_kv(k, Hq, compute_dtype)
+        v = _repeat_kv(v, Hq, compute_dtype)
+        W = min(window, S)
+        pad = (-S) % W
+        far = -10 * S  # a position no query can see
+        q = q.to(compute_dtype) * torch.tensor(scale, dtype=compute_dtype,
+                                               device=q.device)
+        pos = torch.as_tensor(pos, device=q.device)
+        if pad:
+            q = F.pad(q, (0, 0, 0, 0, 0, pad))
+            k = F.pad(k, (0, 0, 0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, 0, 0, pad))
+            pos = F.pad(pos, (0, pad), value=far)
+        Sp = q.shape[1]
+        nb = Sp // W
+
+        qb = q.reshape(B, nb, W, Hq, D)
+        kb = k.reshape(B, nb, W, Hq, D)
+        vb = v.reshape(B, nb, W, Hq, D)
+        before = (0, 0, 0, 0, 0, 0, 1, 0)  # one block of zeros before block 0
+        k2 = torch.cat([F.pad(kb, before)[:, :-1], kb], dim=2)  # (B,nb,2W,H,D)
+        v2 = torch.cat([F.pad(vb, before)[:, :-1], vb], dim=2)
+        pb = pos.reshape(nb, W)
+        p2 = torch.cat([F.pad(pb, (0, 0, 1, 0), value=far)[:-1], pb], dim=1)
+
+        s = torch.einsum("bnqhd,bnkhd->bnhqk", qb.float(), k2.float())
+        dq = pb[None, :, None, :, None]
+        dk = p2[None, :, None, None, :]
+        mask = (dq >= dk) & (dq - dk < W)
+        s = torch.where(mask, s, _NEG)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bnhqk,bnkhd->bnqhd", p.to(compute_dtype).float(),
+                           v2.float())
+        return out.reshape(B, Sp, Hq, D)[:, :S].to(compute_dtype)
 
 
 # ----------------------------------------------------------------------
@@ -258,22 +317,20 @@ def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
                use_local_path=True, q_chunk=1024, kv_chunk=1024, scale=None,
                compute_dtype=torch.bfloat16, rope_on=True,
                n_valid_heads=None):
-    """Self-attention sublayer on (B, S, E).  Returns (out (B, S, E) in
-    x's dtype, (k, v)) -- k/v before the repeat, Hkv heads.
+    """Self- (``kv=None``) or cross- (``kv=`` the encoder's output)
+    attention sublayer on (B, S, E).  Returns (out (B, S, E) in x's
+    dtype, (k, v)) -- k/v before the repeat, Hkv heads.
 
-    A sliding window takes ``gqa_attention``'s masked path here; the JAX
-    package's two-block ``local_attention`` (``use_local_path``) and
-    cross-attention (``kv``) come with the families that use them
-    (ROADMAP.md, queue 1, item 15.2)."""
-    if kv is not None or (window is not None and use_local_path):
-        raise NotImplementedError(
-            "cross-attention and the two-block local path come with "
-            "ROADMAP.md, queue 1, item 15.2")
+    A self-attention layer with a window takes the two-block
+    :func:`local_attention` (``use_local_path``, the default), else
+    ``gqa_attention``'s masked path.  Cross-attention is bidirectional,
+    and no rotary embedding touches its queries or keys."""
     B, S, E = x.shape
     q = _proj(x, p.wq, p.bq, compute_dtype)
-    k = _proj(x, p.wk, p.bk, compute_dtype)
-    v = _proj(x, p.wv, p.bv, compute_dtype)
-    if rope_on:
+    src = x if kv is None else kv
+    k = _proj(src, p.wk, p.bk, compute_dtype)
+    v = _proj(src, p.wv, p.bv, compute_dtype)
+    if rope_on and kv is None:
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     q = q.to(compute_dtype)
@@ -283,9 +340,14 @@ def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
         pos_q = torch.arange(S, device=x.device)
     if pos_k is None:
         pos_k = torch.arange(k.shape[1], device=x.device)
-    o = gqa_attention(q, k, v, pos_q, pos_k, causal=causal, window=window,
-                      kv_len=kv_len, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                      scale=scale, compute_dtype=compute_dtype)
+    if window is not None and kv is None and use_local_path:
+        o = local_attention(q, k, v, pos_q, window=window, scale=scale,
+                            compute_dtype=compute_dtype)
+    else:
+        o = gqa_attention(q, k, v, pos_q, pos_k,
+                          causal=causal and kv is None, window=window,
+                          kv_len=kv_len, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                          scale=scale, compute_dtype=compute_dtype)
     o = _mask_pad_heads(o, n_valid_heads)
     H, hd = p.wo.shape[0], p.wo.shape[1]
     out = torch.matmul(o.to(compute_dtype).reshape(B, S, H * hd),

@@ -6,11 +6,15 @@ The JAX package's ``StackedLM.init`` returns a nested dict: ``embed``,
 ``periods/slot<i>/...`` with every leaf stacked on a leading period axis,
 and ``tail<i>/...`` unstacked.  The port keeps one module per layer
 (``layers.<n>``, period by period, then the tail), with the same leaf names
-below the layer (``ln1.scale``, ``attn.wq``, ``ffn.wi``, ...) and the same
-shapes.  The two packages draw their initial parameters from different
-generators, so parity tests load the JAX package's parameters with
-:func:`from_reference_arrays` and read the port's back (or its gradients,
-or its optimiser moments) with :func:`to_reference_arrays`.
+below the layer (``ln1.scale``, ``attn.wq``, ``ssm.A_log``, ``rec.lam``,
+``ffn.wi``, ``ffn.router``, ``ffn.shared.wg``, ...) and the same shapes.
+The JAX package's ``WhisperED`` stacks ``enc_layers/...`` and
+``dec_layers/...`` on a leading layer axis; the port's holds
+``enc_layers.<n>`` and ``dec_layers.<n>``.  The two packages draw their
+initial parameters from different generators, so parity tests load the
+JAX package's parameters with :func:`from_reference_arrays` and read the
+port's back (or its gradients, or its optimiser moments) with
+:func:`to_reference_arrays`.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ def _reference_path(cfg, name: str):
     """A port parameter name -> (its path in the JAX package's tree, its
     index on the stacked period axis or None)."""
     parts = tuple(name.split("."))
+    if cfg.enc_dec and parts[0] in ("enc_layers", "dec_layers"):
+        return (parts[0],) + parts[2:], int(parts[1])
     if parts[0] != "layers":
         return parts, None
     idx, rest = int(parts[1]), parts[2:]

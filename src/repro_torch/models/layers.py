@@ -19,6 +19,7 @@ when the config asks for ``remat="full"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -28,7 +29,7 @@ from torch import nn
 
 __all__ = [
     "ParamInit", "dense", "rmsnorm", "layernorm", "MLP", "mlp_init",
-    "mlp_apply", "embed_init", "rope", "apply_rope",
+    "mlp_apply", "embed_init", "rope", "apply_rope", "span",
 ]
 
 
@@ -38,7 +39,8 @@ class ParamInit:
 
     ``normal`` draws N(0, 1) times ``scale`` (``1/sqrt(fan_in)`` by default,
     fan_in being ``shape[-2]``, or ``shape[-1]`` for a vector, as in the JAX
-    package), ``zeros`` and ``ones`` are constants.  On the ``meta`` device
+    package), ``zeros`` and ``ones`` are constants, ``const`` a given f32
+    value cast to the parameter dtype.  On the ``meta`` device
     nothing is allocated (the JAX package's ``abstract=True``): the shapes
     alone, for parameter counts.
     """
@@ -64,6 +66,10 @@ class ParamInit:
     def ones(self, shape) -> nn.Parameter:
         return self._param(shape, ("ones", None))
 
+    def const(self, value) -> nn.Parameter:
+        value = torch.as_tensor(value, dtype=torch.float32)
+        return self._param(value.shape, ("const", value))
+
     @staticmethod
     @torch.no_grad()
     def fill(module: nn.Module, seed: int) -> None:
@@ -73,15 +79,28 @@ class ParamInit:
         for p in module.parameters():
             if p.device.type == "meta":
                 continue
-            kind, scale = p.init_rule
+            kind, arg = p.init_rule
             if kind == "normal":
                 w = torch.randn(p.shape, generator=gen,
-                                dtype=torch.float32) * scale
+                                dtype=torch.float32) * arg
                 p.copy_(w.to(p.dtype))
             elif kind == "zeros":
                 p.zero_()
+            elif kind == "const":
+                p.copy_(arg.to(p.dtype))
             else:
                 p.fill_(1.0)
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records,
+    else nothing.  The model code names its parts with these ranges
+    (``attention``, ``moe.dispatch``, ``moe.experts``, ``ssd.intra``, ...)
+    so that a profile of a step can be split by part: the profiler of
+    some builds records no Python stacks with device activity."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 # ----------------------------------------------------------------------

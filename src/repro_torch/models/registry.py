@@ -1,15 +1,13 @@
 """Architecture registry: maps ``--arch`` ids to their config and model,
-as the JAX package's ``models/registry.py`` does.
-
-Only the dense family is ported (ROADMAP.md, queue 1, item 15.1); the
-other architectures raise ``NotImplementedError`` naming the item that
-brings them.
+as the JAX package's ``models/registry.py`` does: a ``StackedLM`` for the
+decoder-only families, a ``WhisperED`` for the encoder-decoder.
 """
 from __future__ import annotations
 
 import importlib
 
-__all__ = ["get_model", "get_config", "ARCH_IDS", "MODEL_FAMILIES"]
+__all__ = ["get_model", "get_config", "build_model", "ARCH_IDS",
+           "MODEL_FAMILIES"]
 
 ARCH_IDS = [
     "granite-moe-3b-a800m",
@@ -44,19 +42,24 @@ _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
 def get_config(arch: str, smoke: bool = False):
     if arch not in MODEL_FAMILIES:
         raise KeyError(f"unknown arch {arch!r}; one of {ARCH_IDS}")
-    if MODEL_FAMILIES[arch] != "dense":
-        raise NotImplementedError(
-            f"{arch} ({MODEL_FAMILIES[arch]} family) is not ported yet "
-            "(ROADMAP.md, queue 1, item 15.2)")
     mod = importlib.import_module(_MODULES[arch])
     return mod.SMOKE if smoke else mod.CONFIG
 
 
+def build_model(cfg, *, seed: int = 0, device=None):
+    """The model of ``cfg`` on ``device`` (the card when None; raises
+    without one), its parameters drawn from ``seed``: a ``WhisperED`` for
+    an encoder-decoder config, else a ``StackedLM``."""
+    if cfg.enc_dec:
+        from repro_torch.models.whisper import WhisperED
+        return WhisperED(cfg, seed=seed, device=device)
+    from repro_torch.models.transformer import StackedLM
+    return StackedLM(cfg, seed=seed, device=device)
+
+
 def get_model(arch: str, smoke: bool = False, *, seed: int = 0,
               device=None):
-    """Returns (model, config): a ``StackedLM`` on ``device`` (the card
+    """Returns (model, config): the arch's model on ``device`` (the card
     when None; raises without one), its parameters drawn from ``seed``."""
-    from repro_torch.models.transformer import StackedLM
-
     cfg = get_config(arch, smoke)
-    return StackedLM(cfg, seed=seed, device=device), cfg
+    return build_model(cfg, seed=seed, device=device), cfg

@@ -1,5 +1,6 @@
-"""StackedLM: the decoder-only backbone, dense family -- the PyTorch
-counterpart of the JAX package's ``models/transformer.py``.
+"""StackedLM: the decoder-only backbone of the dense, MoE, SSM, hybrid
+and VLM families -- the PyTorch counterpart of the JAX package's
+``models/transformer.py``.
 
 A model is ``n_periods`` repetitions of a *period pattern* (a tuple of
 :class:`LayerSpec`) plus a tail of leftover layers.  The JAX package
@@ -10,12 +11,15 @@ Python loop, each period under ``torch.utils.checkpoint`` when the config
 asks for ``remat="full"``.  :mod:`repro_torch.models.convert` maps the two
 layouts onto each other.
 
-Ported here: the training forward (``apply``) of the dense family --
-attention mixers with a dense FFN.  The ``ssm`` and ``rec`` mixers and the
-MoE FFN raise ``NotImplementedError`` (ROADMAP.md, queue 1, item 15.2);
-``prefill``/``decode_step`` and the caches are serving (item 15.3).  The
-JAX package's ``shard(...)`` layout constraints have no counterpart: one
-card, and placement is item 15.4.
+Ported here: the training forward (``apply``) of every family -- the
+``attn`` (global or windowed, with or without RoPE), ``ssm`` (Mamba-2) and
+``rec`` (RG-LRU) mixers, the dense and the MoE FFN with its auxiliary
+losses, the tail layers, and the VLM's image prefix (``image_embeds``,
+prepended in the compute dtype).  The encoder-decoder family is
+:class:`repro_torch.models.whisper.WhisperED`.  ``prefill``/``decode_step``
+and the caches are serving (ROADMAP.md, queue 1, item 15.3).  The JAX
+package's ``shard(...)`` layout constraints have no counterpart: one card,
+and placement is item 15.4.
 """
 from __future__ import annotations
 
@@ -30,10 +34,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch.platform import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as SSM
 
 __all__ = ["LayerSpec", "ArchConfig", "StackedLM"]
-
-_LATER = "ROADMAP.md, queue 1, item 15.2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,12 +132,15 @@ class Norm(nn.Module):
 
 
 class Slot(nn.Module):
-    """One layer: ``ln1``, the mixer ``attn``, and with an FFN ``ln2`` and
-    ``ffn``."""
+    """One layer: ``ln1``; the mixer under its kind's name (``attn``,
+    ``ssm`` or ``rec``); with an FFN, ``ln2`` and ``ffn`` (an ``MLP`` or a
+    ``MoE``)."""
 
-    def __init__(self, ln1, attn, ln2=None, ffn=None):
+    def __init__(self, ln1, mixer: str, module, ln2=None, ffn=None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.ffn = ln1, attn, ln2, ffn
+        self.ln1 = ln1
+        setattr(self, mixer, module)
+        self.ln2, self.ffn = ln2, ffn
 
 
 def _remat_wrap(fn, remat):
@@ -144,7 +152,7 @@ def _remat_wrap(fn, remat):
     if remat != "full":
         raise NotImplementedError(
             f"remat={remat!r}: the JAX package's dot-saving policies are not "
-            "ported, and no dense config uses them (ROADMAP.md, queue 1, "
+            "ported, and no config uses them (ROADMAP.md, queue 1, "
             "item 15)")
 
     def wrapped(*args):
@@ -154,7 +162,7 @@ def _remat_wrap(fn, remat):
 
 
 class StackedLM(nn.Module):
-    """The dense decoder-only model on ``device`` (the card when None;
+    """The decoder-only model on ``device`` (the card when None;
     ``"meta"`` for shapes alone), its parameters drawn from ``seed``."""
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
@@ -196,48 +204,76 @@ class StackedLM(nn.Module):
 
     def _slot_init(self, pi, spec: LayerSpec) -> Slot:
         c = self.cfg
-        if spec.mixer != "attn":
-            raise NotImplementedError(f"mixer {spec.mixer!r} ({_LATER})")
-        attn = A.attn_init(pi, c.d_model, c.hq_padded, c.n_kv, c.hd,
-                           qkv_bias=c.qkv_bias, out_bias=c.qkv_bias)
+        if spec.mixer == "attn":
+            mixer = A.attn_init(pi, c.d_model, c.hq_padded, c.n_kv, c.hd,
+                                qkv_bias=c.qkv_bias, out_bias=c.qkv_bias)
+        elif spec.mixer == "ssm":
+            mixer = SSM.mamba2_init(pi, c.d_model, d_state=c.ssm_state,
+                                    headdim=c.ssm_headdim)
+        elif spec.mixer == "rec":
+            mixer = R.rglru_init(pi, c.d_model, c.rnn_width or c.d_model)
+        else:
+            raise ValueError(spec.mixer)
+        ln1 = self._norm_init(pi)
         if not spec.mlp:
-            return Slot(self._norm_init(pi), attn)
+            return Slot(ln1, spec.mixer, mixer)
         if spec.moe:
-            raise NotImplementedError(f"the MoE FFN ({_LATER})")
-        return Slot(self._norm_init(pi), attn, self._norm_init(pi),
-                    L.mlp_init(pi, c.d_model, c.d_ff, gated=c.gated_mlp))
+            ffn = MOE.moe_init(pi, c.d_model, c.d_ff, c.num_experts,
+                               gated=c.gated_mlp,
+                               shared_ff=c.shared_expert_ff)
+        else:
+            ffn = L.mlp_init(pi, c.d_model, c.d_ff, gated=c.gated_mlp)
+        return Slot(ln1, spec.mixer, mixer, self._norm_init(pi), ffn)
 
     # ------------------------------------------------------------------
     # forward pieces
     # ------------------------------------------------------------------
     def _slot_apply(self, spec: LayerSpec, p: Slot, x, sin, cos):
-        """One layer in ``mode="train"``: (x, aux (2,))."""
+        """One layer in ``mode="train"``: (x, aux (2,) f32, the MoE's load
+        and z losses or zeros)."""
         c = self.cfg
         cd = c.compute_dtype
         aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         h = self._norm(p.ln1, x)
-        nvh = c.n_heads if c.hq_padded != c.n_heads else None
-        o, _ = A.attn_apply(p.attn, h, sin, cos, causal=True,
-                            window=spec.window, q_chunk=c.kv_chunk,
-                            kv_chunk=c.kv_chunk, compute_dtype=cd,
-                            rope_on=spec.rope, n_valid_heads=nvh)
+        if spec.mixer == "attn":
+            nvh = c.n_heads if c.hq_padded != c.n_heads else None
+            o, _ = A.attn_apply(p.attn, h, sin, cos, causal=True,
+                                window=spec.window, q_chunk=c.kv_chunk,
+                                kv_chunk=c.kv_chunk, compute_dtype=cd,
+                                rope_on=spec.rope, n_valid_heads=nvh)
+        elif spec.mixer == "ssm":
+            o = SSM.mamba2_apply(p.ssm, h, chunk=c.ssd_chunk,
+                                 compute_dtype=cd, unroll=c.ssd_unroll)
+        elif spec.mixer == "rec":
+            o = R.rglru_apply(p.rec, h, compute_dtype=cd)
+        else:
+            raise ValueError(spec.mixer)
         x = x + o
         if spec.mlp:
             h2 = self._norm(p.ln2, x)
-            o2 = L.mlp_apply(p.ffn, h2, act=c.act, compute_dtype=cd)
+            if spec.moe:
+                o2, mo = MOE.moe_apply(p.ffn, h2, top_k=c.top_k, act=c.act,
+                                       capacity_factor=c.capacity_factor,
+                                       compute_dtype=cd)
+                aux = aux + torch.stack([mo["load_loss"], mo["z_loss"]])
+            else:
+                o2 = L.mlp_apply(p.ffn, h2, act=c.act, compute_dtype=cd)
             x = x + o2.to(x.dtype)
         return x, aux
 
     # ------------------------------------------------------------------
     # embedding / head
     # ------------------------------------------------------------------
-    def _embed(self, tokens):
+    def _embed(self, tokens, extra=None):
         c = self.cfg
         # the table is cast to the compute dtype before the gather
         x = nn.functional.embedding(tokens, self.embed.to(c.compute_dtype))
         if c.embed_scale:
             x = x * torch.tensor(math.sqrt(c.d_model), dtype=x.dtype,
                                  device=x.device)
+        if c.vlm_patches and extra is not None:
+            # the image prefix: patch embeddings before the text positions
+            x = torch.cat([extra.to(c.compute_dtype), x], dim=1)
         return x
 
     def _logits(self, x):
@@ -255,12 +291,14 @@ class StackedLM(nn.Module):
     # modes
     # ------------------------------------------------------------------
     def apply(self, tokens, *, image_embeds=None):
-        """Training forward: (B, S) tokens -> (logits (B, S, V) in the
-        compute dtype, aux (2,) f32)."""
+        """Training forward: (B, S) tokens [and, for a VLM, (B, P, d_model)
+        ``image_embeds``] -> (logits (B, P + S, V) in the compute dtype,
+        aux (2,) f32: the MoE layers' summed load and z losses)."""
         c = self.cfg
-        if image_embeds is not None or c.vlm_patches or c.enc_dec:
-            raise NotImplementedError(f"the {c.family} family ({_LATER})")
-        x = self._embed(tokens)
+        if c.enc_dec:
+            raise ValueError(f"{c.name} is an encoder-decoder: build it "
+                             "as repro_torch.models.whisper.WhisperED")
+        x = self._embed(tokens, image_embeds)
         S = x.shape[1]
         sin, cos = L.rope(torch.arange(S, device=x.device), c.hd,
                           c.rope_theta)

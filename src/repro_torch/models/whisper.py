@@ -1,0 +1,158 @@
+"""Whisper-style encoder-decoder backbone (arXiv:2212.04356) -- the PyTorch
+counterpart of the JAX package's ``models/whisper.py``, its training half.
+
+The audio frontend (log-mel + conv downsampling) is a stub, as there: the
+caller gives precomputed frame embeddings (B, F, d_model).  The module is
+the transformer backbone: a bidirectional encoder over the frames with
+learned positional embeddings, and a causal decoder with self- and
+cross-attention (LayerNorm and biased projections, Whisper's
+parameterisation), its logits tied to the decoder's embedding.
+
+The JAX package stacks each layer kind's parameters and scans; the port
+keeps one module per layer (``enc_layers``, ``dec_layers``) and runs them
+in a loop, each under ``torch.utils.checkpoint`` when the config asks for
+``remat="full"``.  ``prefill``/``decode_step`` and the caches are serving
+(ROADMAP.md, queue 1, item 15.3).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.launch.platform import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import ArchConfig, Norm, _remat_wrap
+
+__all__ = ["WhisperED"]
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, pi: L.ParamInit, c: ArchConfig):
+        super().__init__()
+        self.ln1 = Norm(pi, c.d_model, "ln")
+        self.attn = A.attn_init(pi, c.d_model, c.n_heads, c.n_kv, c.hd,
+                                qkv_bias=True, out_bias=True)
+        self.ln2 = Norm(pi, c.d_model, "ln")
+        self.ffn = L.mlp_init(pi, c.d_model, c.d_ff, gated=False)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, pi: L.ParamInit, c: ArchConfig):
+        super().__init__()
+        self.ln1 = Norm(pi, c.d_model, "ln")
+        self.self_attn = A.attn_init(pi, c.d_model, c.n_heads, c.n_kv, c.hd,
+                                     qkv_bias=True, out_bias=True)
+        self.ln_x = Norm(pi, c.d_model, "ln")
+        self.cross_attn = A.attn_init(pi, c.d_model, c.n_heads, c.n_kv,
+                                      c.hd, qkv_bias=True, out_bias=True)
+        self.ln2 = Norm(pi, c.d_model, "ln")
+        self.ffn = L.mlp_init(pi, c.d_model, c.d_ff, gated=False)
+
+
+def _ln(p: Norm, x):
+    return L.layernorm(x, p.scale, p.bias)
+
+
+class WhisperED(nn.Module):
+    """Encoder-decoder; ``cfg.n_layers`` encoder layers and as many decoder
+    layers, on ``device`` (the card when None; ``"meta"`` for shapes
+    alone), its parameters drawn from ``seed``.  ``max_dec_len`` sizes the
+    decoder's positional table (32768 covers the JAX package's largest
+    serving shape, so the two parameter counts agree)."""
+
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None,
+                 max_dec_len: int = 32768):
+        super().__init__()
+        if not cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is not an encoder-decoder config")
+        self.cfg = cfg
+        if str(device) != "meta":
+            device = resolve_device(device)
+        pi = L.ParamInit(cfg.param_dtype, device)
+        c = cfg
+        self.enc_pos = pi.normal((c.enc_frames, c.d_model), scale=0.02)
+        self.dec_embed = L.embed_init(pi, c.vocab, c.d_model)
+        self.dec_pos = pi.normal((max_dec_len, c.d_model), scale=0.02)
+        self.enc_layers = nn.ModuleList(EncoderLayer(pi, c)
+                                        for _ in range(c.n_layers))
+        self.dec_layers = nn.ModuleList(DecoderLayer(pi, c)
+                                        for _ in range(c.n_layers))
+        self.enc_ln = Norm(pi, c.d_model, "ln")
+        self.dec_ln = Norm(pi, c.d_model, "ln")
+        self.init(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.dec_embed.device
+
+    def init(self, seed: int) -> "WhisperED":
+        """Draw every parameter from ``seed`` (in place)."""
+        L.ParamInit.fill(self, seed)
+        return self
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    # ------------------------------------------------------------------
+    def encode(self, frames):
+        """(B, F, d_model) frame embeddings -> the encoder's output, in the
+        compute dtype."""
+        c = self.cfg
+        cd = c.compute_dtype
+        F_ = frames.shape[1]
+        x = frames.to(cd) + self.enc_pos[:F_].to(cd)[None]
+
+        def body(h, lp):
+            a = _ln(lp.ln1, h)
+            o, _ = A.attn_apply(lp.attn, a, None, None, causal=False,
+                                rope_on=False, kv_chunk=c.kv_chunk,
+                                compute_dtype=cd)
+            h = h + o
+            m = _ln(lp.ln2, h)
+            return h + L.mlp_apply(lp.ffn, m, act="gelu",
+                                   compute_dtype=cd).to(h.dtype)
+
+        body = _remat_wrap(body, c.remat)
+        for lp in self.enc_layers:
+            x = body(x, lp)
+        return _ln(self.enc_ln, x)
+
+    def _dec_body(self, tokens, enc_out):
+        """The decoder over (B, S) tokens against the encoder's output ->
+        logits (B, S, V) f32."""
+        c = self.cfg
+        cd = c.compute_dtype
+        S = tokens.shape[1]
+        x = nn.functional.embedding(tokens, self.dec_embed).to(cd)
+        x = x + self.dec_pos[:S].to(cd)[None]
+
+        def body(h, enc, lp):
+            a = _ln(lp.ln1, h)
+            o, _ = A.attn_apply(lp.self_attn, a, None, None, causal=True,
+                                rope_on=False, kv_chunk=c.kv_chunk,
+                                compute_dtype=cd)
+            h = h + o
+            xx = _ln(lp.ln_x, h)
+            o, _ = A.attn_apply(lp.cross_attn, xx, None, None, kv=enc,
+                                rope_on=False, kv_chunk=c.kv_chunk,
+                                compute_dtype=cd)
+            h = h + o
+            m = _ln(lp.ln2, h)
+            return h + L.mlp_apply(lp.ffn, m, act="gelu",
+                                   compute_dtype=cd).to(h.dtype)
+
+        body = _remat_wrap(body, c.remat)
+        for lp in self.dec_layers:
+            x = body(x, enc_out, lp)
+        x = _ln(self.dec_ln, x)
+        logits = L.dense(x.to(cd), self.dec_embed.T.to(cd))
+        return logits.float()
+
+    def apply(self, tokens, *, frames):
+        """Training forward: (B, S) tokens and (B, F, d_model) frames ->
+        (logits (B, S, V) f32, aux (2,) zeros)."""
+        enc = self.encode(frames)
+        logits = self._dec_body(tokens, enc)
+        return logits, torch.zeros((2,), dtype=torch.float32,
+                                   device=logits.device)

@@ -906,3 +906,89 @@ def test_lm_entry_points_default_to_the_card(cuda):
     model, cfg = get_model("llama3.2-1b", smoke=True)
     assert model.device.type == "cuda"
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ------------------------------------- the LM substrate's other families
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "llama4-scout-17b-a16e", "mamba2-780m",
+                                  "recurrentgemma-9b", "whisper-tiny",
+                                  "phi-3-vision-4.2b"])
+def test_lm_family_train_step_on_card_matches_host(cuda, arch):
+    """Each family's smoke model (the same seed draws the same parameters
+    on both devices), one ``make_train_step`` step on the same batch with
+    its seeded extras, f32 compute: the card's loss, aux, gradient norm
+    and parameters against the host's."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype=torch.float32)
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq=32, global_batch=2, seed=0)
+    batch = ds.global_batch_arrays(0)
+    batch.update(ds.extra_arrays(0, cfg))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, seed=0, device=dev)
+        step = make_train_step(model, cfg, lr_fn=lambda s: cosine_schedule(
+            s, peak_lr=1e-3, warmup_steps=1, total_steps=2))
+        m = step(adamw_init(dict(model.named_parameters())),
+                 {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[str(dev)] = ({k: float(x) for k, x in m.items()},
+                         [p.detach().cpu() for p in model.parameters()])
+    (mh, ph), (mc, pc) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(mc["loss"], mh["loss"], rtol=1e-5)
+    np.testing.assert_allclose(mc["aux_load"], mh["aux_load"], rtol=1e-5)
+    np.testing.assert_allclose(mc["grad_norm"], mh["grad_norm"], rtol=1e-4)
+    for a, b in zip(pc, ph):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=2 * mh["lr"])
+
+
+def test_lm_local_attention_on_card_matches_windowed(cuda):
+    """The two-block ``local_attention`` on the card against
+    ``gqa_attention(window=)`` on the same operands, forward and
+    gradients (normwise, f32)."""
+    from repro_torch.models.attention import gqa_attention, local_attention
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, ct = (torch.randn(s, generator=gen).to(cuda) for s in (
+        (1, 700, 4, 64), (1, 700, 1, 64), (1, 700, 1, 64), (1, 700, 4, 64)))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    pos = torch.arange(700, device=cuda)
+    got = local_attention(q, k, v, pos, window=256,
+                          compute_dtype=torch.float32)
+    want = gqa_attention(q, k, v, pos, pos, causal=True, window=256,
+                         q_chunk=128, kv_chunk=128,
+                         compute_dtype=torch.float32)
+    gg = torch.autograd.grad((got * ct).sum(), (q, k, v))
+    gw = torch.autograd.grad((want * ct).sum(), (q, k, v))
+    for a, b in zip((got, *gg), (want, *gw)):
+        a, b = a.detach(), b.detach()
+        assert float((a - b).abs().max() / b.abs().max()) <= 2e-5
+
+
+def test_lm_moe_dispatch_on_card_is_repeatable(cuda):
+    """The MoE FFN's scatter on the card: two runs on the same inputs give
+    the same bits, output and gradients (each slot receives one nonzero
+    value, and the combine sums in a fixed order)."""
+    from repro_torch.models.layers import ParamInit
+    from repro_torch.models.moe import moe_apply, moe_init
+
+    p = moe_init(ParamInit(torch.float32, cuda), 64, 128, 8, shared_ff=32)
+    ParamInit.fill(p, 0)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 256, 64), generator=gen).to(cuda)
+    runs = []
+    for _ in range(2):
+        xx = x.clone().requires_grad_(True)
+        out, aux = moe_apply(p, xx, top_k=2, capacity_factor=1.0,
+                             compute_dtype=torch.bfloat16)
+        g = torch.autograd.grad(out.float().square().sum()
+                                + aux["load_loss"], [xx, *p.parameters()])
+        runs.append([out.detach(), *g])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -65,7 +65,15 @@ def test_port_imports_neither_jax_nor_repro():
                    "repro_torch.models.transformer",
                    "repro_torch.models.registry",
                    "repro_torch.models.convert",
+                   "repro_torch.models.moe", "repro_torch.models.ssm",
+                   "repro_torch.models.rglru", "repro_torch.models.whisper",
                    "repro_torch.configs.llama3_2_1b",
+                   "repro_torch.configs.granite_moe_3b_a800m",
+                   "repro_torch.configs.llama4_scout_17b_a16e",
+                   "repro_torch.configs.mamba2_780m",
+                   "repro_torch.configs.recurrentgemma_9b",
+                   "repro_torch.configs.whisper_tiny",
+                   "repro_torch.configs.phi_3_vision_4_2b",
                    "repro_torch.optim.adamw", "repro_torch.optim.grad",
                    "repro_torch.optim.schedule",
                    "repro_torch.launch.steps", "repro_torch.launch.train"):
@@ -138,11 +146,19 @@ def test_baseline_modules_import_alone(module, names):
     ("repro_torch.models.layers", {"ParamInit", "rmsnorm", "rope",
                                    "apply_rope", "mlp_apply", "dense"}),
     ("repro_torch.models.attention", {"gqa_attention", "attn_apply",
-                                      "attn_init"}),
+                                      "attn_init", "local_attention"}),
+    ("repro_torch.models.moe", {"moe_init", "moe_apply", "moe_capacity"}),
+    ("repro_torch.models.ssm", {"mamba2_init", "mamba2_apply",
+                                "mamba2_decode", "mamba2_state",
+                                "ssd_chunked"}),
+    ("repro_torch.models.rglru", {"rglru_init", "rglru_apply",
+                                  "rglru_decode", "rglru_state",
+                                  "linear_scan"}),
+    ("repro_torch.models.whisper", {"WhisperED"}),
     ("repro_torch.models.transformer", {"StackedLM", "ArchConfig",
                                         "LayerSpec"}),
     ("repro_torch.models.registry", {"get_model", "get_config", "ARCH_IDS",
-                                     "MODEL_FAMILIES"}),
+                                     "MODEL_FAMILIES", "build_model"}),
     ("repro_torch.models.convert", {"from_reference_arrays",
                                     "to_reference_arrays"}),
     ("repro_torch.configs", {"get_config", "get_model"}),
@@ -150,7 +166,8 @@ def test_baseline_modules_import_alone(module, names):
                            "clip_by_global_norm", "ef_compress_grads"}),
     ("repro_torch.data.pipeline", {"SyntheticLMDataset",
                                    "global_batch_for_step"}),
-    ("repro_torch.launch.steps", {"make_train_step"}),
+    ("repro_torch.launch.steps", {"make_train_step", "lm_loss",
+                                  "model_extras"}),
     ("repro_torch.launch.train", {"TrainConfig", "train", "main"}),
 ])
 def test_lm_modules_import_alone(module, names):

@@ -254,8 +254,8 @@ def test_head_padding_exactness():
 
 
 def test_entry_points_need_the_card_or_an_explicit_host():
-    """With no device the model goes to the card, and raises without one;
-    the families not yet ported raise naming their ROADMAP item."""
+    """With no device the model goes to the card, and raises without one,
+    for every family; with the host named, every family builds there."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -263,8 +263,10 @@ def test_entry_points_need_the_card_or_an_explicit_host():
     model, cfg = get_model("llama3.2-1b", smoke=True, device="cpu")
     assert model.device.type == "cpu" and cfg.name == "llama3.2-1b-smoke"
     for arch in ("mamba2-780m", "granite-moe-3b-a800m", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="item 15.2"):
-            get_model(arch, smoke=True, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(arch, smoke=True)
+        model, cfg = get_model(arch, smoke=True, device="cpu")
+        assert model.device.type == "cpu" and cfg.name == f"{arch}-smoke"
 
 
 def test_same_seed_same_model():
