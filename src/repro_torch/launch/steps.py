@@ -1,5 +1,6 @@
-"""The training step of the LM substrate -- the PyTorch counterpart of the
-JAX package's ``launch/steps.py::make_train_step``.
+"""The training and serving steps of the LM substrate -- the PyTorch
+counterpart of the JAX package's ``launch/steps.py`` (``make_train_step``,
+``make_prefill_step``, ``make_decode_step``).
 
 The step's loss is the streaming cross-entropy ``lse - gold`` over the
 text positions, with the logits upcast to f32 inside the log-sum-exp, plus
@@ -10,9 +11,11 @@ encoder-decoder.  Gradients accumulate in f32 over
 under the learning-rate schedule ``lr_fn(step count)``.
 
 The port's parameters live in the model, so the step updates the model and
-the optimiser state in place.  ``make_prefill_step``/``make_decode_step``
-are serving (ROADMAP.md, queue 1, item 15.3); ``input_specs``,
-``batch_logical`` and ``all_shardings`` are placement (item 15.4).
+the optimiser state in place, and the serving steps take no parameters.
+The decode step's greedy token is the ``argmax`` of the last position's
+logits (the first of equal maxima), as int32.  ``input_specs``,
+``batch_logical`` and ``all_shardings`` are placement (ROADMAP.md, queue
+1, item 15.4).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from repro_torch.models.layers import span
 from repro_torch.optim import adamw_update, clip_by_global_norm
 from repro_torch.optim.adamw import OptState
 
-__all__ = ["make_train_step", "lm_loss", "model_extras"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
+           "lm_loss", "model_extras"]
 
 
 def model_extras(cfg, batch) -> dict:
@@ -102,3 +106,29 @@ def make_train_step(model, cfg, *, lr_fn, grad_clip: float = 1.0,
                 "aux_load": aux[0], "aux_z": aux[1]}
 
     return train_step
+
+
+def make_prefill_step(model, cfg, *, max_len=None):
+    """``prefill_step(batch) -> (logits, cache)``: ``model.prefill`` over
+    ``batch["tokens"]`` and the model's extras, the caches sized for
+    ``max_len`` positions."""
+
+    def prefill_step(batch):
+        return model.prefill(batch["tokens"], max_len=max_len,
+                             **model_extras(cfg, batch))
+
+    return prefill_step
+
+
+def make_decode_step(model, cfg):
+    """``decode_step(cache, batch) -> (next_tok (B,) int32, logits, cache)``
+    for ``batch`` = {``tokens`` (B, 1), ``pos`` (B,)}: one
+    ``model.decode_step`` and its greedy next token."""
+
+    def decode_step(cache, batch):
+        logits, cache = model.decode_step(cache, batch["tokens"],
+                                          batch["pos"])
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return next_tok, logits, cache
+
+    return decode_step

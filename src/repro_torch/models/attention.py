@@ -16,8 +16,12 @@ product is one batched matrix product over batch and heads.
 ``local_attention`` is the two-block sliding window, plain torch operations
 under autograd; ``attn_apply`` takes it for a windowed self-attention layer
 and ``gqa_attention`` for causal, bidirectional and cross-attention.
-``decode_attention``, ``attn_decode`` and ``init_kv_cache`` are serving
-(ROADMAP.md, queue 1, item 15.3).
+
+Serving: ``decode_attention`` attends one query token to a
+(B, Smax, Hkv, D) cache, masked by a valid prefix or by each slot's
+absolute position (the ring caches of windowed layers); ``attn_decode`` is
+the one-token sublayer, writing the new key and value into the cache in
+place; ``init_kv_cache`` makes a zero cache.
 """
 from __future__ import annotations
 
@@ -27,10 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.platform import resolve_device
 from repro_torch.models.layers import ParamInit, apply_rope, span
 
 __all__ = ["Attention", "attn_init", "gqa_attention", "local_attention",
-           "attn_apply"]
+           "decode_attention", "attn_apply", "attn_decode", "init_kv_cache"]
 
 _NEG = -1e30
 
@@ -104,8 +109,9 @@ def _mask_block(pq, pk, causal, window):
 
 def _dot32(a, b):
     """``a @ b`` with f32 results: products of compute-dtype operands
-    accumulated in f32 (XLA's ``preferred_element_type=f32``)."""
-    if a.dtype != torch.float32:
+    accumulated in f32 (XLA's ``preferred_element_type=f32``); f64
+    operands stay f64."""
+    if a.dtype not in (torch.float32, torch.float64):
         a, b = a.float(), b.float()
     return torch.matmul(a, b)
 
@@ -216,12 +222,10 @@ def gqa_attention(q, k, v, pos_q, pos_k, *, causal=True, window=None,
 
     q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); Hq % Hkv == 0.
     pos_q: (Sq,) or (B, Sq); pos_k: (Sk,) global positions.
-    Returns (B, Sq, Hq, D) in the compute dtype.  ``kv_len`` (a ragged
-    cache's valid prefix) belongs to serving, ROADMAP.md item 15.3.
+    ``kv_len``: optional (B,) valid prefix of k/v; keys at or past its
+    largest entry are masked, through the forward alone (no gradient).
+    Returns (B, Sq, Hq, D) in the compute dtype.
     """
-    if kv_len is not None:
-        raise NotImplementedError("kv_len is the serving path's (ROADMAP.md, "
-                                  "queue 1, item 15.3)")
     B, Sq, Hq, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     k = _repeat_kv(k, Hq, compute_dtype)
@@ -246,6 +250,19 @@ def gqa_attention(q, k, v, pos_q, pos_k, *, causal=True, window=None,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, padk))
         pos_k = torch.nn.functional.pad(pos_k, (0, padk), value=-1)
     nq, nk = q.shape[1] // Cq, k.shape[1] // Ck
+    if kv_len is not None:
+        # a ragged cache: keys past the longest row's prefix are invalid
+        idx = torch.arange(k.shape[1], device=q.device)
+        pos_k = torch.where(idx < torch.max(torch.as_tensor(
+            kv_len, device=q.device)), pos_k, -1)
+        with span("attention"), torch.no_grad():
+            out, _ = _flash_fwd(
+                q.transpose(1, 2).contiguous(),
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), pos_q.contiguous(), pos_k,
+                causal=causal, window=window, nq=nq, nk=nk, Cq=Cq, Ck=Ck,
+                compute_dtype=compute_dtype)
+        return out.transpose(1, 2)[:, :Sq]
     static = (causal, window, nq, nk, Cq, Ck, compute_dtype)
     with span("attention"):
         out = FlashAttention.apply(
@@ -307,6 +324,58 @@ def local_attention(q, k, v, pos, *, window: int, scale=None,
         return out.reshape(B, Sp, Hq, D)[:, :S].to(compute_dtype)
 
 
+def decode_attention(q, k_cache, v_cache, cache_len=None, *, window=None,
+                     key_pos=None, pos_q=None, scale=None,
+                     compute_dtype=torch.bfloat16):
+    """One query token against a (B, Smax, Hkv, D) cache.  q: (B, 1, Hq, D).
+
+    Masking: by the valid prefix ``cache_len`` (B,) of a contiguous cache,
+    or by each slot's absolute position ``key_pos`` (B, Smax) with the
+    query at ``pos_q`` (B,) (the ring caches of windowed layers; -1 marks
+    an empty slot); ``window`` narrows either.  Scores, softmax and
+    ``p @ V`` in f32, the probabilities cast to the compute dtype first.
+
+    Query head h reads KV head h // (Hq / Hkv), contracted in place of the
+    JAX package's repeat of the cache to Hq heads (the same products);
+    with one KV head (MQA) the scores contract against it directly.
+    Returns (B, 1, Hq, D) in the compute dtype.
+    """
+    with span("attention.decode"):
+        B, _, Hq, D = q.shape
+        Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+        cd = compute_dtype
+        scale = scale if scale is not None else 1.0 / math.sqrt(D)
+        qh = (q.to(cd) * torch.tensor(scale, dtype=cd, device=q.device)
+              ).reshape(B, Hq, D)
+        if Hkv == 1:
+            kr = k_cache[:, :, 0].to(cd)                       # (B, Smax, D)
+            s = _dot32(qh, kr.transpose(1, 2))                 # (B, Hq, Smax)
+        else:
+            G = Hq // Hkv
+            kr = k_cache.to(cd).permute(0, 2, 3, 1)            # (B,Hkv,D,Smax)
+            s = _dot32(qh.reshape(B, Hkv, G, D), kr).reshape(B, Hq, Smax)
+        if key_pos is not None:
+            kp = key_pos[:, None, :]
+            pq = torch.as_tensor(pos_q, device=q.device)[:, None, None]
+            mask = (kp >= 0) & (kp <= pq)
+            if window is not None:
+                mask &= kp > pq - window
+        else:
+            idx = torch.arange(Smax, device=q.device)[None, None, :]
+            cl = torch.as_tensor(cache_len, device=q.device)[:, None, None]
+            mask = idx < cl
+            if window is not None:
+                mask &= idx >= cl - window
+        s = torch.where(mask, s, _NEG)
+        p = torch.softmax(s, dim=-1).to(cd)
+        if Hkv == 1:
+            out = _dot32(p, v_cache[:, :, 0].to(cd))           # (B, Hq, D)
+        else:
+            out = _dot32(p.reshape(B, Hkv, G, Smax),
+                         v_cache.to(cd).transpose(1, 2))       # (B,Hkv,G,D)
+        return out.reshape(B, 1, Hq, D).to(cd)
+
+
 # ----------------------------------------------------------------------
 # the attention sublayer (projections + rope + attend + out-projection)
 # ----------------------------------------------------------------------
@@ -349,9 +418,67 @@ def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
                           kv_len=kv_len, q_chunk=q_chunk, kv_chunk=kv_chunk,
                           scale=scale, compute_dtype=compute_dtype)
     o = _mask_pad_heads(o, n_valid_heads)
-    H, hd = p.wo.shape[0], p.wo.shape[1]
+    return _out_proj(p, o, compute_dtype).to(x.dtype), (k, v)
+
+
+def _out_proj(p: Attention, o, compute_dtype):
+    """(B, S, H, hd) -> (B, S, E): the out-projection and its bias."""
+    B, S, H, hd = o.shape
     out = torch.matmul(o.to(compute_dtype).reshape(B, S, H * hd),
                        p.wo.to(compute_dtype).reshape(H * hd, -1))
     if p.bo is not None:
         out = out + p.bo.to(out.dtype)
-    return out.to(x.dtype), (k, v)
+    return out
+
+
+def write_rows(cache, new, idx):
+    """``cache[b, idx[b]] = new[b, 0]`` for every row b, in place.  The
+    index is clamped into the cache, as ``lax.dynamic_update_slice``
+    clamps the JAX package's start index."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = torch.as_tensor(idx, device=cache.device).long().clamp(
+        0, cache.shape[1] - 1)
+    cache[rows, at] = new[:, 0].to(cache.dtype)
+
+
+def attn_decode(p: Attention, x, sin, cos, cache, cache_len, *, window=None,
+                scale=None, compute_dtype=torch.bfloat16, rope_on=True,
+                cross=False, kv_len=None, n_valid_heads=None):
+    """The one-token sublayer.  x: (B, 1, E); cache: dict(k, v), each
+    (B, Smax, Hkv, hd).  Returns (out (B, 1, E) in x's dtype, the cache).
+
+    Self-attention writes the new key and value into the cache at
+    ``cache_len`` (B,), in place, and attends to ``cache_len + 1`` slots;
+    cross-attention reads the cache (the encoder's projected keys and
+    values) and leaves it as it is, all of it valid unless ``kv_len``."""
+    B = x.shape[0]
+    cd = compute_dtype
+    q = _proj(x, p.wq, p.bq, cd)
+    if rope_on and not cross:
+        q = apply_rope(q, sin, cos)
+    q = q.to(cd)
+    if cross:
+        eff_len = kv_len if kv_len is not None else torch.full(
+            (B,), cache["k"].shape[1], dtype=torch.int32, device=x.device)
+    else:
+        k = _proj(x, p.wk, p.bk, cd)
+        v = _proj(x, p.wv, p.bv, cd)
+        if rope_on:
+            k = apply_rope(k, sin, cos)
+        write_rows(cache["k"], k, cache_len)
+        write_rows(cache["v"], v, cache_len)
+        eff_len = cache_len + 1
+    o = decode_attention(q, cache["k"], cache["v"], eff_len, window=window,
+                         scale=scale, compute_dtype=cd)
+    o = _mask_pad_heads(o, n_valid_heads)
+    return _out_proj(p, o, cd).to(x.dtype), cache
+
+
+def init_kv_cache(n_layers, batch, max_len, n_kv, head_dim,
+                  dtype=torch.bfloat16, device=None):
+    """Zero keys and values, (n_layers, batch, max_len, n_kv, head_dim)
+    each, on ``device`` (the card when None; raises without one)."""
+    device = resolve_device(device)
+    shape = (n_layers, batch, max_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -15,13 +15,21 @@ initial parameters from different generators, so parity tests load the
 JAX package's parameters with :func:`from_reference_arrays` and read the
 port's back (or its gradients, or its optimiser moments) with
 :func:`to_reference_arrays`.
+
+Decode caches the same way: the JAX package's ``StackedLM`` cache stacks
+each pattern slot's leaves on the period axis (``periods/slot<i>/k``, ...,
+``tail<i>/...``), its ``WhisperED`` cache stacks ``self/{k,v}`` and
+``cross/{k,v}`` on the layer axis; the port's is a dict from the layer's
+index to its leaves (Whisper's ``cross_k``/``cross_v`` beside ``k``/``v``).
+:func:`cache_from_reference` and :func:`cache_to_reference` map them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["from_reference_arrays", "to_reference_arrays"]
+__all__ = ["from_reference_arrays", "to_reference_arrays",
+           "cache_from_reference", "cache_to_reference"]
 
 
 def _reference_path(cfg, name: str):
@@ -100,4 +108,74 @@ def to_reference_arrays(model, values=None) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = np.stack([per_layer[i]
                                    for i in range(len(per_layer))])
+    return tree
+
+
+_WHISPER_CACHE = {"k": ("self", "k"), "v": ("self", "v"),
+                  "cross_k": ("cross", "k"), "cross_v": ("cross", "v")}
+
+
+def _cache_paths(model):
+    """(layer index, leaf name, path in the JAX package's cache, index on
+    its stacked axis or None, the port's dtype) for every leaf of
+    ``model``'s decode cache."""
+    cfg = model.cfg
+    for i, leaves in model.abstract_cache(1, 1).items():
+        for name, t in leaves.items():
+            if cfg.enc_dec:
+                yield i, name, _WHISPER_CACHE[name], i, t.dtype
+            else:
+                path, layer = _reference_path(cfg, f"layers.{i}.{name}")
+                yield i, name, path, layer, t.dtype
+
+
+def cache_from_reference(model, tree, *, device=None) -> dict:
+    """The port's decode cache from the JAX package's cache tree (numpy
+    arrays, or anything ``np.asarray`` takes), each leaf in the port's
+    dtype on ``device`` (the model's when None); every leaf of the tree
+    must be used."""
+    dev = model.device if device is None else torch.device(device)
+    out: dict = {}
+    used = set()
+    for i, name, path, layer, dtype in _cache_paths(model):
+        node = tree
+        for key in path:
+            node = node[key]
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+        if layer is not None:
+            arr = arr[layer]
+        out.setdefault(i, {})[name] = torch.from_numpy(np.array(arr)).to(
+            device=dev, dtype=dtype)
+        used.add(path)
+    missing = [p for p, _ in _leaves(tree) if p not in used]
+    if missing:
+        raise ValueError(f"cache leaves with no counterpart: {missing}")
+    return out
+
+
+def cache_to_reference(model, cache) -> dict:
+    """The JAX package's cache tree of the port's ``cache``, as numpy
+    arrays; bf16 comes back as f32."""
+    stacks: dict = {}
+    tree: dict = {}
+    for i, name, path, layer, _ in _cache_paths(model):
+        t = cache[i][name].detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        arr = t.numpy()
+        if layer is not None:
+            stacks.setdefault(path, {})[layer] = arr
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    for path, per_layer in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([per_layer[i]
+                                   for i in sorted(per_layer)])
     return tree

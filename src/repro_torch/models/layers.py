@@ -118,10 +118,10 @@ def dense(x, w, compute_dtype=None):
 
 
 def rmsnorm(x, scale, eps=1e-6, offset=0.0):
-    """RMSNorm.  In f32 the plain formula; otherwise the JAX package's
-    branch for a backend without bf16 batched dots: the sum of squares in
-    f32, the normalisation in ``x.dtype``."""
-    if x.dtype == torch.float32:
+    """RMSNorm.  In f32 (or f64) the plain formula; otherwise the JAX
+    package's branch for a backend without bf16 batched dots: the sum of
+    squares in f32, the normalisation in ``x.dtype``."""
+    if x.dtype in (torch.float32, torch.float64):
         var = torch.mean(x * x, dim=-1, keepdim=True)
         return x * torch.rsqrt(var + eps) * (offset + scale.to(x.dtype))
     xf = x.float()

@@ -11,15 +11,26 @@ Python loop, each period under ``torch.utils.checkpoint`` when the config
 asks for ``remat="full"``.  :mod:`repro_torch.models.convert` maps the two
 layouts onto each other.
 
-Ported here: the training forward (``apply``) of every family -- the
-``attn`` (global or windowed, with or without RoPE), ``ssm`` (Mamba-2) and
-``rec`` (RG-LRU) mixers, the dense and the MoE FFN with its auxiliary
-losses, the tail layers, and the VLM's image prefix (``image_embeds``,
-prepended in the compute dtype).  The encoder-decoder family is
-:class:`repro_torch.models.whisper.WhisperED`.  ``prefill``/``decode_step``
-and the caches are serving (ROADMAP.md, queue 1, item 15.3).  The JAX
-package's ``shard(...)`` layout constraints have no counterpart: one card,
-and placement is item 15.4.
+Modes, as there:
+  * ``apply``        -- the training forward of every family: the ``attn``
+    (global or windowed, with or without RoPE), ``ssm`` (Mamba-2) and
+    ``rec`` (RG-LRU) mixers, the dense and the MoE FFN with its auxiliary
+    losses, the tail layers, and the VLM's image prefix (``image_embeds``,
+    prepended in the compute dtype);
+  * ``prefill``      -- the forward over a prompt and the decode cache it
+    leaves (a contiguous KV cache for global attention, a ring for
+    windowed attention, O(1) states for ``rec``/``ssm``, the MoE's
+    capacity carry);
+  * ``decode_step``  -- one token a row against that cache.
+
+The cache is a dict keyed by the layer's index in ``layers``, where the
+JAX package stacks each pattern slot's cache on the period axis
+(``convert.cache_from_reference``/``cache_to_reference`` map the two).
+The serving horizon ``max_len`` is passed down the prefill's call; the
+JAX package sets it on the model.  The encoder-decoder family is
+:class:`repro_torch.models.whisper.WhisperED`.  The JAX package's
+``shard(...)`` layout constraints and ``cache_logical`` have no
+counterpart: one card, and placement is item 15.4 of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -175,8 +187,10 @@ class StackedLM(nn.Module):
         self.final_norm = self._norm_init(pi)
         self.head = (None if cfg.tie_embed
                      else pi.normal((cfg.d_model, cfg.vocab)))
-        specs = list(cfg.pattern) * cfg.n_periods + list(cfg.tail_specs)
-        self.layers = nn.ModuleList(self._slot_init(pi, s) for s in specs)
+        # each layer's spec: the pattern period by period, then the tail
+        self.specs = tuple(cfg.pattern) * cfg.n_periods + cfg.tail_specs
+        self.layers = nn.ModuleList(self._slot_init(pi, s)
+                                    for s in self.specs)
         self.init(seed)
 
     @property
@@ -228,38 +242,177 @@ class StackedLM(nn.Module):
     # ------------------------------------------------------------------
     # forward pieces
     # ------------------------------------------------------------------
-    def _slot_apply(self, spec: LayerSpec, p: Slot, x, sin, cos):
-        """One layer in ``mode="train"``: (x, aux (2,) f32, the MoE's load
-        and z losses or zeros)."""
+    def _slot_apply(self, spec: LayerSpec, p: Slot, x, sin, cos, *,
+                    mode="train", cache=None, pos_dec=None, max_len=None):
+        """One layer: (x, the layer's cache, aux (2,) f32 -- the MoE's load
+        and z losses or zeros).
+
+        ``mode="train"`` returns no cache (None); ``"prefill"`` builds the
+        layer's cache for a serving horizon of ``max_len`` positions;
+        ``"decode"`` takes one token at positions ``pos_dec`` (B,) against
+        ``cache`` and returns it updated."""
         c = self.cfg
         cd = c.compute_dtype
         aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         h = self._norm(p.ln1, x)
+        # the MoE capacity carry rides in the layer's cache beside the
+        # mixer's entries; the mixer's decoders see only their own
+        moe_state = None
+        if cache is not None and "moe_cnt" in cache:
+            moe_state = (cache["moe_cnt"], cache["moe_cap"])
+            cache = {k: v for k, v in cache.items()
+                     if k not in ("moe_cnt", "moe_cap")}
+        new_cache = cache
         if spec.mixer == "attn":
             nvh = c.n_heads if c.hq_padded != c.n_heads else None
-            o, _ = A.attn_apply(p.attn, h, sin, cos, causal=True,
-                                window=spec.window, q_chunk=c.kv_chunk,
-                                kv_chunk=c.kv_chunk, compute_dtype=cd,
-                                rope_on=spec.rope, n_valid_heads=nvh)
+            if mode in ("train", "prefill"):
+                o, (k, v) = A.attn_apply(
+                    p.attn, h, sin, cos, causal=True, window=spec.window,
+                    q_chunk=c.kv_chunk, kv_chunk=c.kv_chunk,
+                    compute_dtype=cd, rope_on=spec.rope, n_valid_heads=nvh)
+                if mode == "prefill":
+                    new_cache = self._attn_prefill_cache(spec, k, v,
+                                                         max_len)
+            elif spec.window is not None:
+                o, new_cache = self._ring_decode(spec, p.attn, h, sin, cos,
+                                                 cache, pos_dec)
+            else:
+                o, new_cache = A.attn_decode(
+                    p.attn, h, sin, cos, cache, pos_dec, compute_dtype=cd,
+                    rope_on=spec.rope, n_valid_heads=nvh)
         elif spec.mixer == "ssm":
-            o = SSM.mamba2_apply(p.ssm, h, chunk=c.ssd_chunk,
-                                 compute_dtype=cd, unroll=c.ssd_unroll)
+            if mode == "train":
+                o = SSM.mamba2_apply(p.ssm, h, chunk=c.ssd_chunk,
+                                     compute_dtype=cd, unroll=c.ssd_unroll)
+            elif mode == "prefill":
+                o, st = SSM.mamba2_apply(p.ssm, h, chunk=c.ssd_chunk,
+                                         compute_dtype=cd, return_state=True,
+                                         unroll=c.ssd_unroll)
+                new_cache = self._ssm_prefill_cache(p.ssm, h, st)
+            else:
+                o, new_cache = SSM.mamba2_decode(p.ssm, h, cache,
+                                                 compute_dtype=cd)
         elif spec.mixer == "rec":
-            o = R.rglru_apply(p.rec, h, compute_dtype=cd)
+            if mode == "train":
+                o = R.rglru_apply(p.rec, h, compute_dtype=cd)
+            elif mode == "prefill":
+                o, hstate = R.rglru_apply(p.rec, h, compute_dtype=cd,
+                                          return_state=True)
+                new_cache = self._rec_prefill_cache(p.rec, h, hstate)
+            else:
+                o, new_cache = R.rglru_decode(p.rec, h, cache,
+                                              compute_dtype=cd)
         else:
             raise ValueError(spec.mixer)
         x = x + o
         if spec.mlp:
             h2 = self._norm(p.ln2, x)
             if spec.moe:
-                o2, mo = MOE.moe_apply(p.ffn, h2, top_k=c.top_k, act=c.act,
-                                       capacity_factor=c.capacity_factor,
-                                       compute_dtype=cd)
+                moe_kw = dict(top_k=c.top_k, act=c.act,
+                              capacity_factor=c.capacity_factor,
+                              compute_dtype=cd)
+                if mode == "prefill":
+                    # the pre-drop expert counts and the serving horizon's
+                    # capacity ride on, so prefill and decode apply one
+                    # first-come rule: the full-length forward's
+                    cap = MOE.moe_capacity(max_len, c.top_k, c.num_experts,
+                                           c.capacity_factor)
+                    o2, mo, cnts = MOE.moe_apply(p.ffn, h2, capacity=cap,
+                                                 return_counts=True, **moe_kw)
+                    new_cache = dict(new_cache)
+                    new_cache["moe_cnt"] = cnts
+                    new_cache["moe_cap"] = torch.full(
+                        (), cap, dtype=torch.int32, device=x.device)
+                elif mode == "decode" and moe_state is not None:
+                    cnts, cap = moe_state
+                    o2, mo, cnts = MOE.moe_apply(p.ffn, h2,
+                                                 expert_counts=cnts,
+                                                 capacity_ref=cap,
+                                                 return_counts=True, **moe_kw)
+                    new_cache = dict(new_cache)
+                    new_cache["moe_cnt"] = cnts
+                    new_cache["moe_cap"] = cap
+                else:
+                    o2, mo = MOE.moe_apply(p.ffn, h2, **moe_kw)
                 aux = aux + torch.stack([mo["load_loss"], mo["z_loss"]])
             else:
                 o2 = L.mlp_apply(p.ffn, h2, act=c.act, compute_dtype=cd)
             x = x + o2.to(x.dtype)
-        return x, aux
+        return x, (None if mode == "train" else new_cache), aux
+
+    def _attn_prefill_cache(self, spec: LayerSpec, k, v, max_len: int):
+        """An attention layer's cache from the prefix's keys and values
+        (B, S, Hkv, hd).  Global: zero-padded to ``max_len`` positions.
+        Windowed: a ring of W slots, position p in slot p % W, ``pos`` the
+        position a slot holds (-1 empty; a prefix shorter than W fills
+        slots 0..S-1)."""
+        c = self.cfg
+        B, S = k.shape[:2]
+        if spec.window is None:
+            pad = (0, 0, 0, 0, 0, max_len - S)
+            return {"k": F.pad(k.to(c.cache_dtype), pad),
+                    "v": F.pad(v.to(c.cache_dtype), pad)}
+        W = spec.window
+        ks, vs = k[:, -W:], v[:, -W:]
+        ps = torch.arange(S, device=k.device)[-W:]
+        if S < W:
+            ks = F.pad(ks, (0, 0, 0, 0, 0, W - S))
+            vs = F.pad(vs, (0, 0, 0, 0, 0, W - S))
+            ps = F.pad(ps, (0, W - S), value=-1)
+            roll = torch.arange(W, device=k.device)
+        else:
+            roll = torch.argsort(ps % W)
+        return {"k": ks[:, roll].to(c.cache_dtype),
+                "v": vs[:, roll].to(c.cache_dtype),
+                "pos": ps[roll].to(torch.int32).expand(B, W).contiguous()}
+
+    def _ssm_prefill_cache(self, p, h, s):
+        """The SSM state and the conv ring: the prefix's last K-1
+        post-in-projection xBC rows (zero rows before a shorter prefix)."""
+        c = self.cfg
+        d_inner = p.norm.shape[0]
+        K = p.conv_w.shape[0]
+        gn = (p.conv_w.shape[1] - d_inner) // 2
+        zx = L.dense(h[:, -(K - 1):], p.in_proj, c.compute_dtype)
+        xBC = zx[..., d_inner:2 * d_inner + 2 * gn]
+        S = h.shape[1]
+        if S < K - 1:
+            xBC = F.pad(xBC, (0, 0, K - 1 - S, 0))
+        return {"ssm": s, "conv": xBC.to(c.cache_dtype)}
+
+    def _rec_prefill_cache(self, p, h, hstate):
+        """The RG-LRU's last hidden state and its conv ring, as
+        :meth:`_ssm_prefill_cache`."""
+        c = self.cfg
+        K = p.conv_w.shape[0]
+        x = L.dense(h[:, -(K - 1):], p.wx, c.compute_dtype)
+        S = h.shape[1]
+        if S < K - 1:
+            x = F.pad(x, (0, 0, K - 1 - S, 0))
+        return {"h": hstate, "conv": x.to(c.cache_dtype)}
+
+    def _ring_decode(self, spec: LayerSpec, p, h, sin, cos, cache, pos_dec):
+        """Sliding-window decode against a ring cache: the new key, value
+        and position go to slot ``pos % W`` (in place)."""
+        c = self.cfg
+        cd = c.compute_dtype
+        W = cache["k"].shape[1]
+        q = A._proj(h, p.wq, p.bq, cd)
+        k = A._proj(h, p.wk, p.bk, cd)
+        v = A._proj(h, p.wv, p.bv, cd)
+        if spec.rope:
+            q = L.apply_rope(q, sin, cos)
+            k = L.apply_rope(k, sin, cos)
+        slot = pos_dec % W
+        A.write_rows(cache["k"], k, slot)
+        A.write_rows(cache["v"], v, slot)
+        A.write_rows(cache["pos"], pos_dec[:, None], slot)
+        o = A.decode_attention(q.to(cd), cache["k"], cache["v"],
+                               key_pos=cache["pos"], pos_q=pos_dec, window=W,
+                               compute_dtype=cd)
+        o = A._mask_pad_heads(o, c.n_heads if c.hq_padded != c.n_heads
+                              else None)
+        return A._out_proj(p, o, cd).to(h.dtype), cache
 
     # ------------------------------------------------------------------
     # embedding / head
@@ -280,12 +433,14 @@ class StackedLM(nn.Module):
         """Logits stay in the compute dtype; the loss upcasts inside its
         log-sum-exp."""
         c = self.cfg
-        x = self._norm(self.final_norm, x)
-        w = self.embed.T if c.tie_embed else self.head
-        logits = L.dense(x.to(c.compute_dtype), w.to(c.compute_dtype))
-        if c.logit_softcap:
-            logits = torch.tanh(logits / c.logit_softcap) * c.logit_softcap
-        return logits.to(c.compute_dtype)
+        with L.span("logits"):
+            x = self._norm(self.final_norm, x)
+            w = self.embed.T if c.tie_embed else self.head
+            logits = L.dense(x.to(c.compute_dtype), w.to(c.compute_dtype))
+            if c.logit_softcap:
+                logits = (torch.tanh(logits / c.logit_softcap)
+                          * c.logit_softcap)
+            return logits.to(c.compute_dtype)
 
     # ------------------------------------------------------------------
     # modes
@@ -306,7 +461,7 @@ class StackedLM(nn.Module):
 
         def period(h, aux, *layers):
             for spec, lp in zip(c.pattern, layers):
-                h, a = self._slot_apply(spec, lp, h, sin, cos)
+                h, _, a = self._slot_apply(spec, lp, h, sin, cos)
                 aux = aux + a
             return h, aux
 
@@ -315,6 +470,104 @@ class StackedLM(nn.Module):
         for i in range(c.n_periods):
             x, aux = period(x, aux, *self.layers[i * n:(i + 1) * n])
         for spec, lp in zip(c.tail_specs, self.layers[c.n_periods * n:]):
-            x, a = self._slot_apply(spec, lp, x, sin, cos)
+            x, _, a = self._slot_apply(spec, lp, x, sin, cos)
             aux = aux + a
         return self._logits(x), aux
+
+    @torch.no_grad()
+    def prefill(self, tokens, *, image_embeds=None, max_len=None):
+        """The forward over a prompt and the decode cache it leaves:
+        (B, S) tokens [and a VLM's ``image_embeds``] -> (logits (B, 1, V)
+        at the last position, in the compute dtype; the cache).
+
+        The cache is a dict from each layer's index in ``layers`` to its
+        tensors: ``k``/``v`` (B, max_len, Hkv, hd) zero-padded past the
+        prefix for a global attention layer; ``k``/``v`` (B, W, Hkv, hd)
+        and ``pos`` (B, W) int32 for a windowed one (a ring, position p in
+        slot p % W, -1 empty); ``ssm`` (B, H, N, P) f32 and ``conv`` for
+        Mamba-2; ``h`` (B, d_rnn) f32 and ``conv`` for the RG-LRU; and,
+        for an MoE layer, ``moe_cnt`` (B, E) int32 and ``moe_cap``.
+        ``max_len`` sizes the global caches for the decoding that follows;
+        it is at least the prefix (a VLM's image positions included) + 1.
+        """
+        c = self.cfg
+        if c.enc_dec:
+            raise ValueError(f"{c.name} is an encoder-decoder: build it "
+                             "as repro_torch.models.whisper.WhisperED")
+        x = self._embed(tokens, image_embeds)
+        S = x.shape[1]
+        max_len = max(max_len or 0, S + 1)
+        sin, cos = L.rope(torch.arange(S, device=x.device), c.hd,
+                          c.rope_theta)
+        cache = {}
+        for i, (spec, lp) in enumerate(zip(self.specs, self.layers)):
+            x, cache[i], _ = self._slot_apply(spec, lp, x, sin, cos,
+                                              mode="prefill",
+                                              max_len=max_len)
+        return self._logits(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos):
+        """One token a row: tokens (B, 1) at positions ``pos`` (B,) int32
+        -> (logits (B, 1, V) in the compute dtype, the cache).  The
+        attention caches are written in place; the returned dict holds
+        them and the recurrent states and MoE counts of this step."""
+        c = self.cfg
+        pos = torch.as_tensor(pos, device=self.device)
+        x = self._embed(tokens)
+        sin, cos = L.rope(pos[:, None], c.hd, c.rope_theta)
+        new = {}
+        for i, (spec, lp) in enumerate(zip(self.specs, self.layers)):
+            x, new[i], _ = self._slot_apply(spec, lp, x, sin, cos,
+                                            mode="decode", cache=cache[i],
+                                            pos_dec=pos)
+        return self._logits(x), new
+
+    # ------------------------------------------------------------------
+    # cache constructors
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, *, device=None):
+        """A zero decode cache for ``batch`` rows and ``max_len``
+        positions, laid out as :meth:`prefill`'s, on ``device`` (the
+        model's when None)."""
+        c = self.cfg
+        dev = self.device if device is None else torch.device(device)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def layer(spec: LayerSpec):
+            if spec.mixer == "attn":
+                n = spec.window if spec.window is not None else max_len
+                out = {"k": zeros((batch, n, c.n_kv, c.hd), c.cache_dtype),
+                       "v": zeros((batch, n, c.n_kv, c.hd), c.cache_dtype)}
+                if spec.window is not None:
+                    out["pos"] = torch.full((batch, n), -1,
+                                            dtype=torch.int32, device=dev)
+            elif spec.mixer == "ssm":
+                d_inner = 2 * c.d_model
+                out = {"ssm": zeros((batch, d_inner // c.ssm_headdim,
+                                     c.ssm_state, c.ssm_headdim),
+                                    torch.float32),
+                       "conv": zeros((batch, 3, d_inner + 2 * c.ssm_state),
+                                     c.cache_dtype)}
+            elif spec.mixer == "rec":
+                r = c.rnn_width or c.d_model
+                out = {"h": zeros((batch, r), torch.float32),
+                       "conv": zeros((batch, 3, r), c.cache_dtype)}
+            else:
+                raise ValueError(spec.mixer)
+            if spec.mlp and spec.moe:
+                out["moe_cnt"] = zeros((batch, c.num_experts), torch.int32)
+                out["moe_cap"] = torch.full(
+                    (), MOE.moe_capacity(max_len, c.top_k, c.num_experts,
+                                         c.capacity_factor),
+                    dtype=torch.int32, device=dev)
+            return out
+
+        return {i: layer(spec) for i, spec in enumerate(self.specs)}
+
+    def abstract_cache(self, batch: int, max_len: int):
+        """:meth:`init_cache`'s shapes and dtypes on the ``meta`` device
+        (no allocation)."""
+        return self.init_cache(batch, max_len, device="meta")

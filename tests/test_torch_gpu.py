@@ -992,3 +992,80 @@ def test_lm_moe_dispatch_on_card_is_repeatable(cuda):
         runs.append([out.detach(), *g])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- the LM serving path
+@pytest.mark.parametrize("hkv", [1, 2])
+@pytest.mark.parametrize("mode", ["cache_len", "key_pos_window"])
+def test_lm_decode_attention_on_card_matches_host(cuda, hkv, mode):
+    """``decode_attention`` on the card against the host on the same
+    operands, f32: a valid prefix, and a ring's slot positions under a
+    window; one KV head (MQA) and two."""
+    from repro_torch.models.attention import decode_attention
+
+    gen = torch.Generator().manual_seed(0)
+    B, Smax, Hq, D = 3, 40, 8, 32
+    q = torch.randn((B, 1, Hq, D), generator=gen)
+    k = torch.randn((B, Smax, hkv, D), generator=gen)
+    v = torch.randn((B, Smax, hkv, D), generator=gen)
+    if mode == "cache_len":
+        args, kw = (torch.tensor([1, 17, 40], dtype=torch.int32),), {}
+    else:
+        kp = torch.stack([torch.randperm(Smax, generator=gen)
+                          for _ in range(B)]).to(torch.int32)
+        kp[0, :5] = -1
+        args = ()
+        kw = dict(key_pos=kp, pos_q=torch.tensor([30, 39, 12],
+                                                 dtype=torch.int32),
+                  window=16)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = decode_attention(
+            q.to(dev), k.to(dev), v.to(dev), *(a.to(dev) for a in args),
+            compute_dtype=torch.float32,
+            **{n: (x.to(dev) if torch.is_tensor(x) else x)
+               for n, x in kw.items()}).cpu()
+    np.testing.assert_allclose(out[str(cuda)].numpy(), out["cpu"].numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b",
+                                  "granite-moe-3b-a800m"])
+def test_lm_serve_batch_on_card_matches_host(cuda, arch):
+    """``serve_batch`` of one smoke model (the same seed draws the same
+    parameters on both devices), f32 compute and cache, on the card and on
+    the host; then the host's tokens fed to both: the prefill's and every
+    step's logits within rtol 1e-4 and a floor of 1e-4 x max|host|."""
+    import dataclasses
+
+    from repro_torch.launch.serve import (
+        ServeConfig,
+        decode_steps,
+        serve_batch,
+        serve_inputs,
+        serve_len,
+    )
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype=torch.float32,
+                              cache_dtype=torch.float32)
+    B, P, G = 2, 20, 6
+    models = {str(d): build_model(cfg, seed=0, device=d)
+              for d in ("cpu", cuda)}
+    scfg = {d: ServeConfig(arch=arch, batch=B, prompt_len=P, gen_len=G,
+                           device=d) for d in models}
+    gens = {d: serve_batch(scfg[d], model=m)[0] for d, m in models.items()}
+    assert gens[str(cuda)].shape == (B, G)
+    pos0, max_len = serve_len(cfg, P, G)
+    logits = {}
+    for d, m in models.items():
+        lg, cache = make_prefill_step(m, cfg, max_len=max_len)(
+            serve_inputs(scfg[d], cfg))
+        logits[d] = [lg[:, -1].cpu()] + [
+            lg[:, -1].cpu() for _, lg, _ in decode_steps(
+                m, cfg, cache, None, pos0=pos0, steps=G, forced=gens["cpu"])]
+    for got, want in zip(logits[str(cuda)], logits["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))

@@ -76,7 +76,8 @@ def test_port_imports_neither_jax_nor_repro():
                    "repro_torch.configs.phi_3_vision_4_2b",
                    "repro_torch.optim.adamw", "repro_torch.optim.grad",
                    "repro_torch.optim.schedule",
-                   "repro_torch.launch.steps", "repro_torch.launch.train"):
+                   "repro_torch.launch.steps", "repro_torch.launch.train",
+                   "repro_torch.launch.serve"):
         assert module in names, module
 
 
@@ -146,7 +147,9 @@ def test_baseline_modules_import_alone(module, names):
     ("repro_torch.models.layers", {"ParamInit", "rmsnorm", "rope",
                                    "apply_rope", "mlp_apply", "dense"}),
     ("repro_torch.models.attention", {"gqa_attention", "attn_apply",
-                                      "attn_init", "local_attention"}),
+                                      "attn_init", "local_attention",
+                                      "decode_attention", "attn_decode",
+                                      "init_kv_cache"}),
     ("repro_torch.models.moe", {"moe_init", "moe_apply", "moe_capacity"}),
     ("repro_torch.models.ssm", {"mamba2_init", "mamba2_apply",
                                 "mamba2_decode", "mamba2_state",
@@ -160,15 +163,20 @@ def test_baseline_modules_import_alone(module, names):
     ("repro_torch.models.registry", {"get_model", "get_config", "ARCH_IDS",
                                      "MODEL_FAMILIES", "build_model"}),
     ("repro_torch.models.convert", {"from_reference_arrays",
-                                    "to_reference_arrays"}),
+                                    "to_reference_arrays",
+                                    "cache_from_reference",
+                                    "cache_to_reference"}),
     ("repro_torch.configs", {"get_config", "get_model"}),
     ("repro_torch.optim", {"adamw_init", "adamw_update", "cosine_schedule",
                            "clip_by_global_norm", "ef_compress_grads"}),
     ("repro_torch.data.pipeline", {"SyntheticLMDataset",
                                    "global_batch_for_step"}),
     ("repro_torch.launch.steps", {"make_train_step", "lm_loss",
-                                  "model_extras"}),
+                                  "model_extras", "make_prefill_step",
+                                  "make_decode_step"}),
     ("repro_torch.launch.train", {"TrainConfig", "train", "main"}),
+    ("repro_torch.launch.serve", {"ServeConfig", "serve_inputs", "serve_len",
+                                  "decode_steps", "serve_batch", "main"}),
 ])
 def test_lm_modules_import_alone(module, names):
     """Each module of the LM substrate imports on its own, first in a
