@@ -47,6 +47,13 @@ The main paths, each through the entry points a user calls:
     served through ``serve_batch`` (prefill once, the KV cache, greedy
     decode), its decode held to its forward, and every arch's smoke config
     served on the card against the host.  No ``pallas_call``: no kernel
+    joins the line;
+  * slice 12, LM placement: llama3.2-1b at full width trained through
+    ``make_placed_train_step`` with its parameters and AdamW state split
+    over the card named at 4 mesh positions, moved between meshes by
+    ``elastic_remesh``, a checkpoint restored placed, and the dry run of
+    two production cells.  No ``pallas_call`` (placement is
+    ``NamedSharding`` and XLA's partitioner in the JAX package): no kernel
     joins the line.
 
 Phases, one line each:
@@ -217,6 +224,28 @@ Phases, one line each:
                 both: each step's logits rtol 1e-4, or twice the host's
                 own spread under a 2e-7 change of every parameter where
                 that is larger
+16. lm-placement (right after 15, also beside nvcc) llama3.2-1b at full
+                width (f32 parameters, bf16 compute, full remat), 3 steps of
+                4 x 2048 tokens at a constant lr 1e-3 from phase 13's seed:
+                (a) on one device; (b) placed on (data=1, model=4) -- the
+                losses, grad norms, gathered parameters and both moments
+                equal to (a) bit for bit; (c) placed on (data=2, model=2)
+                -- losses rtol 5e-3 and parameters max-abs 5e-2 of (a)
+                (the JAX package's bars), the gaps and the elements more
+                than 1e-6 apart logged, and on the first 2 layers at f32
+                compute the losses rtol 1e-5 and grad norms rtol 1e-4;
+                (d) ``elastic_remesh`` of (c)'s parameters and moments
+                (2,2) -> (1,4) -> (4,1) -> (2,2), bit for bit, each
+                position holding its resolved bytes, and
+                ``CheckpointManager.restore(shardings=)`` of the smoke
+                model onto (2,2) bit for bit; (e) each position's measured
+                bytes (parameters, moments, count, batch) equal to the dry
+                run's count for the same config, batch and mesh, the step
+                times of (a)-(c) (CUDA events) and
+                ``max_memory_allocated``; (f) ``launch/dryrun.run_cell`` of
+                llama3.2-1b ``train_4k`` and ``decode_32k`` on the 16 x 16
+                single-pod mesh of ``meta``: memory, FLOPs, collective
+                bytes and fallbacks (the 8 KV heads among them)
   8. kernels    one JSON line, after every phase: per kernel its launches
                 (by phase), error and times
 
@@ -306,6 +335,15 @@ SERVE_ROWS, SERVE_LEN, SERVE_GREEDY, SERVE_F32_LAYERS = 2, 1024, 16, 2
 # served decode attention against SDPA on the same bf16 cache, and the
 # first layers' bf16 decode step against their bf16 forward
 SERVE_ATTN_BAR, SERVE_BF16_BAR = 2e-2, 1e-1
+# LM placement (phase 16): the steps each placement runs from phase 13's
+# parameters and batches at the JAX package's constant learning rate
+# (``tests/test_distributed.py``), the depth of the f32 check, the meshes
+# of the card named at 4 positions (placed steps, then the elastic chain),
+# and the dry run's cells on the single-pod mesh
+PLACE_STEPS, PLACE_LR, PLACE_F32_LAYERS = 3, 1e-3, 2
+PLACE_BITWISE, PLACE_DP = (1, 4), (2, 2)
+PLACE_CHAIN = ((1, 4), (4, 1), (2, 2))
+PLACE_DRY = ("train_4k", "decode_32k")
 SRC = Path(__file__).resolve().parent / "src"
 BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
@@ -414,17 +452,21 @@ def check(what, *answers, exact=False, rtol=RTOL, atol=ATOL):
 
 
 def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
-        sweep_queries=64, dfs_queries=16, reps=10, sweep_n=None,
+        sweep_queries=64, dfs_queries=8, reps=10, sweep_n=None,
         fresh=FRESH, deletes=DELETES, hot=HOT, slots=SLOTS, wal_n=WAL_N,
         wal_inserts=WAL_INSERTS, wal_deletes=WAL_DELETES,
         wal_more=WAL_MORE, shards=SHARDS, shard_slots=SHARD_SLOTS,
         failing=FAILING, dur_n=DUR_N, dur_shards=DUR_SHARDS,
         dur_writes=DUR_WRITES, dur_more=DUR_MORE, lift_n=LIFT_N,
-        budgets=BUDGETS, lm_kw=None, lm_fam_kw=None) -> dict:
+        budgets=BUDGETS, lm_kw=None, lm_fam_kw=None,
+        lm_place_kw=None) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
-    size; ``sweep_n`` cuts slice 1's depth alone, ``lm_kw`` is passed to
-    :func:`run_lm` and ``lm_fam_kw`` to :func:`run_lm_families`); returns
-    the kernels record."""
+    size; the plain ``dfs`` route, 2.6 s a query on the host, is checked
+    on 8 queries to keep the script within its limit; ``sweep_n`` cuts
+    slice 1's depth alone, ``lm_kw`` is passed to
+    :func:`run_lm`, ``lm_fam_kw`` to :func:`run_lm_families` and
+    ``lm_place_kw`` to :func:`run_lm_placement`); returns the kernels
+    record."""
     import torch
 
     from repro_torch.kernels import _build
@@ -441,8 +483,8 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
 
     # 2. build every kernel, one nvcc per source, all at once, while the
     # phases that launch no kernel run: 13-14 train the LM, 15 serves it,
-    # then 7's index and 3's tree are built on the host; checked before
-    # phase 4
+    # 16 places it, then 7's index and 3's tree are built on the host;
+    # checked before phase 4
     ready = None
     if device.type == "cuda":
         pool = ThreadPoolExecutor(max_workers=1)
@@ -475,6 +517,9 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
     t0 = time.perf_counter()
     run_lm_serve(device, card, reps=reps)
     log("lm-serve", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    run_lm_placement(device, card, **(lm_place_kw or {}))
+    log("lm-placement", phase_seconds=f"{time.perf_counter() - t0:.1f}")
     stacked = build_stacked(device, n=n, d=d, queries=queries, n0=n0,
                             fresh=fresh, deletes=deletes)
     k1, frozen = run_sweep(device, card, n=sweep_n or n, d=d,
@@ -3642,6 +3687,341 @@ def run_serve_smoke(device, card) -> None:
                                  f"host: gap {max(gaps)} over its bar")
 
 
+def run_lm_placement(device, card, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ,
+                     steps=PLACE_STEPS, f32_layers=PLACE_F32_LAYERS,
+                     dry=PLACE_DRY) -> None:
+    """Phase 16, LM placement: ``LM_ARCH`` at full width (or ``cfg``, a
+    cut of it for a rehearsal) trained on one device and placed on meshes
+    of ``device`` named at 4 positions, then moved between meshes, a
+    checkpoint restored placed, and the dry run's cells."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import get_config
+
+    cfg = cfg or get_config(LM_ARCH)
+    full = cfg == get_config(LM_ARCH)
+    free_device(device)
+    batches = place_batches(cfg, batch, seq, steps)
+    # (a) one device, from the phase's parameters; the initial parameters
+    # and the final state come back to the host
+    init, one = place_one_device(device, cfg, batches, full=full)
+    free_device(device)
+    # (b) (data=1, model=4): bit for bit (a)
+    state = place_run(device, card, cfg, init, batches, PLACE_BITWISE, one,
+                      bitwise=True)
+    del state
+    free_device(device)
+    # (c) (data=2, model=2): the JAX package's bars; its state feeds (d)
+    state = place_run(device, card, cfg, init, batches, PLACE_DP, one,
+                      bitwise=False)
+    del one
+    # (d) the elastic chain on (c)'s state
+    place_elastic(device, card, cfg, state)
+    del state, init
+    free_device(device)
+    # (c) again at f32 compute on the first layers, one step from the same
+    # parameters (the placement's own arithmetic, before AdamW amplifies
+    # it): the tight bars
+    f32 = dataclasses.replace(cfg, n_layers=f32_layers,
+                              compute_dtype=torch.float32)
+    init32, one32 = place_one_device(device, f32, batches[:1], full=False)
+    free_device(device)
+    place_run(device, card, f32, init32, batches[:1], PLACE_DP, one32,
+              bitwise=False, f32=True)
+    del init32, one32
+    free_device(device)
+    # (d) a checkpoint restored placed, at smoke width; a mixed mesh raises
+    place_restore(device, card)
+    # (f) the dry run on the production mesh (meta: no card)
+    for shape in dry:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(LM_ARCH, shape, "single",
+                              out_dir=str(BUILD / "dryrun"))
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {LM_ARCH} {shape}: "
+                                 f"{rec.get('error')}")
+        coll = rec["collectives_raw"]
+        fall = sorted({(a, d, m) for _, a, d, m in rec["fallbacks"]})
+        log("lm-placement-dryrun", arch=LM_ARCH, shape=shape,
+            mesh="single 16x16 (meta)", seconds=f"{time.perf_counter() - t0:.1f}",
+            compile_s=rec["compile_s"],
+            argument_bytes_per_position=rec["memory"][
+                "argument_size_in_bytes"],
+            by_part=json.dumps(rec["memory_by_part"]),
+            flops=rec["cost_raw"]["flops"],
+            metered_flops=rec.get("metered", {}).get("total", {}).get(
+                "flops"),
+            collectives=("null" if coll is None
+                         else json.dumps(coll["payload_bytes"])),
+            wire_bytes=None if coll is None else coll["wire_bytes"],
+            fallbacks=json.dumps(fall))
+        if ("kv_heads", 8) not in {(a, d) for a, d, _ in fall}:
+            raise AssertionError(f"dry run {shape}: kv_heads 8 is not among "
+                                 f"the fallbacks {fall}")
+
+
+def place_batches(cfg, batch, seq, steps) -> list:
+    """Phase 13's batches (``SyntheticLMDataset``, its seed), on the
+    host."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq=seq, global_batch=batch,
+                            seed=SEED)
+    return [{k: torch.from_numpy(v) for k, v in
+             ds.global_batch_arrays(s).items()} for s in range(steps)]
+
+
+def place_one_device(device, cfg, batches, *, full) -> tuple:
+    """(a): ``cfg``'s model from ``SEED`` on ``device``, ``len(batches)``
+    plain steps; returns (the initial parameters on the host, the run:
+    metrics, step ms, the final parameters and moments on the host)."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model, get_model
+    from repro_torch.optim import adamw_init
+
+    if full:  # the entry point a user calls
+        model, _ = get_model(LM_ARCH, seed=SEED, device=device)
+    else:
+        model = build_model(cfg, seed=SEED, device=device)
+    def host(t):  # a copy of its own, also when ``device`` is the host
+        return t.detach().to("cpu", copy=True)
+
+    init = {n: host(p) for n, p in model.named_parameters()}
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(model, cfg, lr_fn=lambda s: PLACE_LR)
+    runs = [timed_call(lambda b=b: step(opt, {
+        k: v.to(device) for k, v in b.items()}), device) for b in batches]
+    one = {"loss": [float(m["loss"]) for m, _ in runs],
+           "grad_norm": [float(m["grad_norm"]) for m, _ in runs],
+           "ms": [t for _, t in runs],
+           "params": {n: host(p) for n, p in model.named_parameters()},
+           "mu": {n: host(t) for n, t in opt.mu.items()},
+           "nu": {n: host(t) for n, t in opt.nu.items()},
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if device.type == "cuda" else None)}
+    return init, one
+
+
+def _gib(x):
+    return "not measured" if x is None else f"{x:.2f}"
+
+
+def place_run(device, card, cfg, init, batches, shape, one, *, bitwise,
+              f32=False) -> dict:
+    """(b)/(c)/(e): the placed step on ``device`` named at the positions of
+    ``shape`` (data, model) from ``init``, held to the one-device run
+    ``one``; each position's bytes held to the dry run's count.  Returns
+    the placed state."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import cell_shardings, make_placed_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.placement import device_put, gather
+
+    mesh = make_test_mesh(shape, devices=[device] * int(np.prod(shape)))
+    name = f"({shape[0]},{shape[1]})" + (" f32" if f32 else "")
+    t0 = time.perf_counter()
+    step = make_placed_train_step(build_model(cfg, device="meta"), cfg,
+                                  mesh=mesh, params=init,
+                                  lr_fn=lambda s: PLACE_LR)
+    opt = adamw_init(step.params)
+    sync(device)
+    place_s = time.perf_counter() - t0
+    runs = [timed_call(lambda b=b: step(opt, b), device) for b in batches]
+    loss = [float(m["loss"]) for m, _ in runs]
+    gnorm = [float(m["grad_norm"]) for m, _ in runs]
+    ms = [t for _, t in runs]
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device.type == "cuda" else None)
+    # (e) bytes: measured storage a position against the dry run's count
+    B, S = batches[0]["tokens"].shape
+    cells = cell_shardings(cfg, mesh, "train", B, S)
+    placed_batch = {k: device_put(v, cells["batch_sharding"][k])
+                    for k, v in batches[0].items()}
+    held = {"params": sum(p.nbytes_by_position()
+                          for p in step.params.values()),
+            "opt": (sum(m.nbytes_by_position() for m in opt.mu.values())
+                    + sum(v.nbytes_by_position() for v in opt.nu.values())
+                    + opt.count.nbytes_by_position()),
+            "batch": sum(b.nbytes_by_position()
+                         for b in placed_batch.values())}
+    counted = {"params": dryrun.position_bytes(cells["abstract_params"],
+                                               cells["param_sharding"]),
+               "opt": dryrun.position_bytes(cells["abstract_opt"],
+                                            cells["opt_sharding"]),
+               "batch": dryrun.position_bytes(cells["input_specs"],
+                                              cells["batch_sharding"])}
+    del placed_batch
+    # the state against (a), leaf by leaf on the card
+    gaps = {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    apart = {"params": 0, "mu": 0, "nu": 0}
+    equal = True
+    for part, tree in (("params", step.params), ("mu", opt.mu),
+                       ("nu", opt.nu)):
+        for n, pt in tree.items():
+            got = gather(pt, device).float()
+            want = one[part][n].to(device).float()
+            equal = equal and torch.equal(got, want)
+            d = (got - want).abs()
+            gaps[part] = max(gaps[part], float(d.max()))
+            apart[part] += int((d > 1e-6).sum())
+            del got, want, d
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(loss, one["loss"])]
+    gn_rel = [abs(a - b) / abs(b) for a, b in zip(gnorm, one["grad_norm"])]
+    log("lm-placement", card=repr(card), arch=cfg.name, mesh=name,
+        positions=mesh.size, data_positions=len(step.data_positions),
+        layers=cfg.n_layers, compute=str(cfg.compute_dtype),
+        steps=len(batches), place_s=f"{place_s:.1f}",
+        step_ms=",".join(f"{t:.1f}" for t in ms),
+        one_device_step_ms=",".join(f"{t:.1f}" for t in one["ms"]),
+        loss=",".join(f"{x:.6f}" for x in loss),
+        one_device_loss=",".join(f"{x:.6f}" for x in one["loss"]),
+        loss_rel=",".join(f"{x:.2e}" for x in loss_rel),
+        grad_norm_rel=",".join(f"{x:.2e}" for x in gn_rel),
+        max_abs_params=f"{gaps['params']:.3e}",
+        max_abs_mu=f"{gaps['mu']:.3e}", max_abs_nu=f"{gaps['nu']:.3e}",
+        apart_1e6=json.dumps(apart), bit_for_bit=equal,
+        bytes_per_position=json.dumps({k: int(v.flat[0])
+                                       for k, v in held.items()}),
+        counted_per_position=json.dumps(counted),
+        max_memory_allocated_gib=_gib(peak),
+        one_device_max_memory_allocated_gib=_gib(one["peak_gib"]))
+    for part in held:
+        if not (held[part] == counted[part]).all():
+            raise AssertionError(f"{name} {part}: positions hold "
+                                 f"{held[part].ravel().tolist()} bytes, the "
+                                 f"dry run counts {counted[part]}")
+    if bitwise:
+        if not (equal and loss == one["loss"]
+                and gnorm == one["grad_norm"]):
+            raise AssertionError(f"{name}: not bit for bit the one-device "
+                                 f"step (losses {loss} / {one['loss']}, "
+                                 f"gaps {gaps})")
+    elif f32:
+        np.testing.assert_allclose(loss, one["loss"], rtol=1e-5,
+                                   err_msg=f"{name} losses")
+        np.testing.assert_allclose(gnorm, one["grad_norm"], rtol=1e-4,
+                                   err_msg=f"{name} grad norms")
+    else:
+        # the JAX package's bars (``tests/test_distributed.py:112-121``):
+        # its test takes one step, so the first loss -- the same
+        # parameters, the batch split over the data positions -- and the
+        # parameters after every step are held; the later losses also
+        # carry AdamW's amplification of the bf16 differences of the
+        # earlier steps, so they are logged against the bar
+        held = [r <= 5e-3 for r in loss_rel]
+        log("lm-placement", mesh=name, loss_bar="rtol 5e-3",
+            losses_within_bar=",".join(map(str, held)),
+            params_bar="max-abs 5e-2",
+            params_within_bar=gaps["params"] < 5e-2)
+        if not held[0]:
+            raise AssertionError(f"{name}: first loss {loss[0]} against "
+                                 f"{one['loss'][0]} (rtol 5e-3)")
+        if not gaps["params"] < 5e-2:
+            raise AssertionError(f"{name}: parameters {gaps['params']} "
+                                 f"from the one-device step's")
+    return {"params": step.params, "mu": opt.mu, "nu": opt.nu,
+            "count": opt.count, "mesh": mesh,
+            "logical": {n: p.logical for n, p in
+                        build_model(cfg, device="meta").named_parameters()}}
+
+
+def place_elastic(device, card, cfg, state) -> None:
+    """(d): each leaf of the placed state moved (2,2) -> (1,4) -> (4,1) ->
+    (2,2) through ``elastic_remesh``: bit for bit at every mesh, every
+    position holding the bytes its resolved spec says."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.placement import gather
+    from repro_torch.runtime.elastic import elastic_remesh
+
+    meshes = [make_test_mesh(s, devices=[device] * int(np.prod(s)))
+              for s in PLACE_CHAIN]
+    t0 = time.perf_counter()
+    moved = leaves = 0
+    per_mesh = {s: 0 for s in PLACE_CHAIN}
+    for part in ("params", "mu", "nu", "count"):
+        tree = state[part] if part != "count" else {"count": state[part]}
+        for n, pt in tree.items():
+            logical = {"x": () if part == "count" else state["logical"][n]}
+            want = gather(pt, device)
+            cur = {"x": pt}
+            for shape, mesh in zip(PLACE_CHAIN, meshes):
+                cur = elastic_remesh(cur, logical, mesh, cfg.rules)
+                got = cur["x"]
+                nbytes = got.sharding.shard_nbytes(tuple(got.shape),
+                                                   got.dtype)
+                held = got.nbytes_by_position()
+                if not (held == nbytes).all() or not torch.equal(
+                        gather(got, device), want):
+                    raise AssertionError(f"elastic {part} {n} on {shape}: "
+                                         f"{held.ravel().tolist()} bytes "
+                                         f"(want {nbytes}) or values differ")
+                per_mesh[shape] += nbytes
+            moved += want.numel() * want.element_size()
+            leaves += 1
+            del want, cur, got
+    sync(device)
+    log("lm-placement-elastic", card=repr(card), chain="(2,2)->" + "->".join(
+        f"({a},{b})" for a, b in PLACE_CHAIN), leaves=leaves,
+        bytes=moved, seconds=f"{time.perf_counter() - t0:.1f}",
+        bytes_per_position=json.dumps({f"({a},{b})": v for (a, b), v in
+                                       per_mesh.items()}),
+        bit_for_bit=True)
+
+
+def place_restore(device, card) -> None:
+    """(d): the smoke model's parameters saved with no mesh, restored
+    placed on (2,2) of ``device`` bit for bit; a placed step on a mesh of
+    two device types raises."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_placed_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel.placement import gather
+    from repro_torch.runtime.elastic import specs_for_mesh
+
+    model, cfg = get_model(LM_ARCH, smoke=True, seed=SEED, device="cpu")
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    logical = {n: p.logical for n, p in model.named_parameters()}
+    mesh = make_test_mesh(PLACE_DP, devices=[device] * 4)
+    root = BUILD / "chip_smoke_placement"
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(str(root))
+    mgr.save(1, params, blocking=True)
+    restored = mgr.restore(1, params, shardings=specs_for_mesh(
+        logical, params, mesh, cfg.rules))
+    same = all(torch.equal(gather(restored[n], device), p.to(device))
+               and all(s.device == torch.device(device) for s in
+                       restored[n].shards.flat)
+               for n, p in params.items())
+    shutil.rmtree(root, ignore_errors=True)
+    mixed = make_test_mesh((2,), ("model",), devices=[device, "cpu"])
+    try:
+        make_placed_train_step(model, cfg, mesh=mixed, params=params,
+                               lr_fn=lambda s: PLACE_LR)
+        refused = False
+    except ValueError:
+        refused = True
+    log("lm-placement-restore", card=repr(card), arch=f"{LM_ARCH} smoke",
+        mesh="(2,2)", leaves=len(params), bit_for_bit=same,
+        mixed_mesh_refused=refused)
+    if not (same and (refused or device.type == "cpu")):
+        raise AssertionError(f"restore onto (2,2): bit for bit {same}; "
+                             f"mixed mesh refused {refused}")
+
+
 def main() -> int:
     import torch
 
@@ -3654,7 +4034,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
+    t0 = time.perf_counter()
     record = run(torch.device("cuda", 0))
+    log("smoke", script_seconds=f"{time.perf_counter() - t0:.1f}")
     for kern in record["kernels"]:  # reached only if every check passed
         log("kernels", name=kern["name"], launches=kern["launches"],
             matches_plain=True, max_abs_err=kern["max_abs_err"])

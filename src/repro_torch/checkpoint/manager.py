@@ -28,6 +28,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.parallel.placement import PlacedTensor, device_put
+
 __all__ = ["CheckpointManager", "write_json_atomic", "read_json",
            "fsync_dir", "flatten", "unflatten"]
 
@@ -256,24 +258,39 @@ class CheckpointManager:
             leaves.append(arr)
         return leaves, manifest
 
-    def restore(self, step: int, like: Any, *, verify: bool = True):
-        """A step as tensors in ``like``'s structure (nested dicts/lists),
-        each leaf on the device of ``like``'s leaf at its place; a shape or
-        dtype that differs from ``like``'s raises ``ValueError``."""
+    def restore(self, step: int, like: Any, *, shardings: Any = None,
+                verify: bool = True):
+        """A step as tensors in ``like``'s structure (nested dicts/lists of
+        tensors or placed tensors), each leaf on the device of ``like``'s
+        tensor at its place; a shape or dtype that differs from
+        ``like``'s raises ``ValueError``.  ``shardings``
+        (congruent with ``like``, or a flat list in its leaf order, of
+        :class:`repro_torch.parallel.placement.NamedSharding` or None)
+        places each leaf by its sharding instead -- the elastic path: a
+        checkpoint written on any mesh, or none, restores onto this one,
+        bit for bit."""
         leaves, manifest = self.restore_leaves(step, verify=verify)
         want = flatten(like)
         if len(want) != len(leaves):
             raise ValueError(f"step {step} holds {len(leaves)} leaves, the "
                              f"structure asked for {len(want)}")
+        placing = ([None] * len(want) if shardings is None
+                   else flatten(shardings))
+        if len(placing) != len(want):
+            raise ValueError(f"{len(placing)} shardings for {len(want)} "
+                             f"leaves")
         out = []
-        for i, (arr, meta, ref) in enumerate(zip(leaves, manifest["leaves"],
-                                                 want)):
+        for i, (arr, meta, ref, sh) in enumerate(zip(
+                leaves, manifest["leaves"], want, placing)):
             t = _tensor(arr, meta["dtype"])
-            if isinstance(ref, torch.Tensor):
-                if t.shape != ref.shape or t.dtype != ref.dtype:
+            if isinstance(ref, (torch.Tensor, PlacedTensor)):
+                if t.shape != tuple(ref.shape) or t.dtype != ref.dtype:
                     raise ValueError(
                         f"leaf {i}: {t.dtype} {tuple(t.shape)} against "
                         f"{ref.dtype} {tuple(ref.shape)}")
+            if sh is not None:
+                t = device_put(t, sh)
+            elif isinstance(ref, torch.Tensor):
                 t = t.to(ref.device)
             out.append(t)
         return unflatten(like, out)

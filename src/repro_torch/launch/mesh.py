@@ -1,4 +1,5 @@
-"""Serving meshes: named device grids for the multi-device read path.
+"""Meshes: named device grids for the multi-device read path, LM
+placement and the dry run.
 
 The JAX package's mesh is a ``jax.sharding.Mesh``, and its mapped programs
 (``shard_map``) run every position inside one ``jit`` of one process.  The
@@ -8,7 +9,11 @@ its own CUDA stream (:func:`repro_torch.parallel.collectives.per_position`)
 -- with the collectives as explicit steps between launches.
 
 Building a mesh touches no device: the grid is a value, and a position
-costs nothing until work is placed on it.
+costs nothing until work is placed on it.  The production meshes of the
+dry run (``make_production_mesh``: 16 x 16, or 2 x 16 x 16 across pods)
+name the ``meta`` device at every position by default -- the counterpart
+of the JAX package's 512 forced host devices: tensors placed there have
+shapes and no storage.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import itertools
 import numpy as np
 import torch
 
-__all__ = ["DeviceMesh", "make_mesh", "make_serving_mesh", "mesh_context"]
+__all__ = ["DeviceMesh", "make_mesh", "make_serving_mesh", "mesh_context",
+           "make_production_mesh", "make_test_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -132,6 +138,26 @@ def make_serving_mesh(devices: int | None = None, *,
     if n < 1:
         raise ValueError("a serving mesh needs at least one CUDA device")
     return make_mesh((n,), (axis,))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The JAX package's production mesh: 16 x 16 over (``data``,
+    ``model``), or 2 x 16 x 16 over (``pod``, ``data``, ``model``) with
+    ``multi_pod``, ``meta`` at every position: the dry run's placement, no
+    allocation."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_test_mesh(shape, axes)
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), *,
+                   devices=None) -> DeviceMesh:
+    """A mesh of ``shape`` over ``axes`` naming ``devices`` (``meta`` at
+    every position by default; e.g. ``["cpu"] * 8`` for the host tests,
+    ``["cuda:0"] * 4`` for one card at four positions)."""
+    n = int(np.prod(shape))
+    return make_mesh(shape, axes,
+                     devices=["meta"] * n if devices is None else devices)
 
 
 def mesh_context(mesh):

@@ -57,14 +57,15 @@ class Attention(nn.Module):
     def __init__(self, pi: ParamInit, d_model, n_heads, n_kv, head_dim, *,
                  qkv_bias=False, out_bias=False):
         super().__init__()
-        self.wq = pi.normal((d_model, n_heads, head_dim))
-        self.wk = pi.normal((d_model, n_kv, head_dim))
-        self.wv = pi.normal((d_model, n_kv, head_dim))
-        self.wo = pi.normal((n_heads, head_dim, d_model))
-        self.bq = pi.zeros((n_heads, head_dim)) if qkv_bias else None
-        self.bk = pi.zeros((n_kv, head_dim)) if qkv_bias else None
-        self.bv = pi.zeros((n_kv, head_dim)) if qkv_bias else None
-        self.bo = pi.zeros((d_model,)) if out_bias else None
+        q, kv = ("heads", "head_dim"), ("kv_heads", "head_dim")
+        self.wq = pi.normal((d_model, n_heads, head_dim), ("embed",) + q)
+        self.wk = pi.normal((d_model, n_kv, head_dim), ("embed",) + kv)
+        self.wv = pi.normal((d_model, n_kv, head_dim), ("embed",) + kv)
+        self.wo = pi.normal((n_heads, head_dim, d_model), q + ("embed",))
+        self.bq = pi.zeros((n_heads, head_dim), q) if qkv_bias else None
+        self.bk = pi.zeros((n_kv, head_dim), kv) if qkv_bias else None
+        self.bv = pi.zeros((n_kv, head_dim), kv) if qkv_bias else None
+        self.bo = pi.zeros((d_model,), ("embed",)) if out_bias else None
 
 
 def attn_init(pi: ParamInit, d_model, n_heads, n_kv, head_dim, *,

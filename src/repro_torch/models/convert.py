@@ -22,6 +22,14 @@ each pattern slot's leaves on the period axis (``periods/slot<i>/k``, ...,
 ``cross/{k,v}`` on the layer axis; the port's is a dict from the layer's
 index to its leaves (Whisper's ``cross_k``/``cross_v`` beside ``k``/``v``).
 :func:`cache_from_reference` and :func:`cache_to_reference` map them.
+
+Placement: a port parameter's logical axes are the JAX package's less the
+leading ``"stack"`` axis of a stacked leaf (the period or layer axis,
+which ``RULES`` never shards).  :func:`logical_to_reference` and
+:func:`specs_to_reference` put it back -- ``"stack"`` before the axes, a
+None before the spec -- so the two packages' placements compare leaf for
+leaf; :func:`cache_logical_to_reference` and
+:func:`cache_specs_to_reference` do the same for the decode cache.
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ import numpy as np
 import torch
 
 __all__ = ["from_reference_arrays", "to_reference_arrays",
-           "cache_from_reference", "cache_to_reference"]
+           "cache_from_reference", "cache_to_reference",
+           "logical_to_reference", "specs_to_reference",
+           "cache_logical_to_reference", "cache_specs_to_reference"]
 
 
 def _reference_path(cfg, name: str):
@@ -179,3 +189,69 @@ def cache_to_reference(model, cache) -> dict:
         node[path[-1]] = np.stack([per_layer[i]
                                    for i in sorted(per_layer)])
     return tree
+
+
+def _reference_tree(entries, lead) -> dict:
+    """The JAX package's tree of per-leaf values from ``(path, index on
+    the stacked axis or None, value)``: a stacked path's layers must agree,
+    and its value becomes ``lead(value)``."""
+    tree: dict = {}
+    stacked: dict = {}
+    for path, layer, value in entries:
+        if layer is not None:
+            stacked.setdefault(path, set()).add(value)
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    for path, values in stacked.items():
+        if len(values) != 1:
+            raise ValueError(f"the layers of {'/'.join(path)} disagree: "
+                             f"{sorted(map(str, values))}")
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = lead(values.pop())
+    return tree
+
+
+def _param_entries(model, values):
+    for name, _ in model.named_parameters():
+        path, layer = _reference_path(model.cfg, name)
+        yield path, layer, values[name]
+
+
+def _cache_entries(model, values):
+    for i, name, path, layer, _ in _cache_paths(model):
+        yield path, layer, values[i][name]
+
+
+def logical_to_reference(model, logical: dict) -> dict:
+    """The JAX package's logical-axes tree from the port's (parameter name
+    -> axes): ``"stack"`` before a stacked leaf's axes."""
+    return _reference_tree(_param_entries(model, logical),
+                           lambda v: ("stack",) + tuple(v))
+
+
+def specs_to_reference(model, specs: dict) -> dict:
+    """The JAX package's tree of specs, as tuples, from the port's
+    (parameter name -> spec): None (the replicated stack axis) before a
+    stacked leaf's."""
+    return _reference_tree(_param_entries(model, {
+        k: tuple(v) for k, v in specs.items()}), lambda v: (None,) + v)
+
+
+def cache_logical_to_reference(model, logical: dict) -> dict:
+    """The JAX package's cache-axes tree from the port's
+    (``cache_logical``)."""
+    return _reference_tree(_cache_entries(model, logical),
+                           lambda v: ("stack",) + tuple(v))
+
+
+def cache_specs_to_reference(model, specs: dict) -> dict:
+    """The JAX package's cache specs, as tuples, from the port's (layer ->
+    leaf -> spec)."""
+    return _reference_tree(_cache_entries(model, {
+        i: {k: tuple(v) for k, v in leaves.items()}
+        for i, leaves in specs.items()}), lambda v: (None,) + v)

@@ -30,45 +30,56 @@ from torch import nn
 __all__ = [
     "ParamInit", "dense", "rmsnorm", "layernorm", "MLP", "mlp_init",
     "mlp_apply", "embed_init", "rope", "apply_rope", "span",
+    "abstract_params",
 ]
 
 
 @dataclasses.dataclass
 class ParamInit:
-    """Creates parameters and records how each is drawn.
+    """Creates parameters and records how each is drawn and placed.
 
     ``normal`` draws N(0, 1) times ``scale`` (``1/sqrt(fan_in)`` by default,
     fan_in being ``shape[-2]``, or ``shape[-1]`` for a vector, as in the JAX
     package), ``zeros`` and ``ones`` are constants, ``const`` a given f32
-    value cast to the parameter dtype.  On the ``meta`` device
-    nothing is allocated (the JAX package's ``abstract=True``): the shapes
-    alone, for parameter counts.
+    value cast to the parameter dtype.  Each takes the parameter's logical
+    axes (``("embed", "heads", "head_dim")``, ...; one name or None a
+    dimension), as the JAX package's do, and records them on the
+    parameter as ``logical`` beside ``init_rule``; placement resolves them
+    against a mesh (:mod:`repro_torch.parallel.sharding`).  Axes left out
+    are None: replicated.  On the ``meta`` device nothing is allocated
+    (the JAX package's ``abstract=True``): the shapes alone, for parameter
+    counts and placement.
     """
 
     param_dtype: torch.dtype = torch.float32
     device: torch.device | str = "cpu"
 
-    def _param(self, shape, rule) -> nn.Parameter:
-        p = nn.Parameter(torch.empty(tuple(shape), dtype=self.param_dtype,
+    def _param(self, shape, logical, rule) -> nn.Parameter:
+        shape = tuple(shape)
+        logical = (None,) * len(shape) if logical is None else tuple(logical)
+        if len(logical) != len(shape):
+            raise ValueError(f"logical axes {logical} for shape {shape}")
+        p = nn.Parameter(torch.empty(shape, dtype=self.param_dtype,
                                      device=self.device))
         p.init_rule = rule
+        p.logical = logical
         return p
 
-    def normal(self, shape, scale=None) -> nn.Parameter:
+    def normal(self, shape, logical=None, scale=None) -> nn.Parameter:
         if scale is None:
             scale = 1.0 / math.sqrt(shape[-2] if len(shape) > 1
                                     else shape[-1])
-        return self._param(shape, ("normal", scale))
+        return self._param(shape, logical, ("normal", scale))
 
-    def zeros(self, shape) -> nn.Parameter:
-        return self._param(shape, ("zeros", None))
+    def zeros(self, shape, logical=None) -> nn.Parameter:
+        return self._param(shape, logical, ("zeros", None))
 
-    def ones(self, shape) -> nn.Parameter:
-        return self._param(shape, ("ones", None))
+    def ones(self, shape, logical=None) -> nn.Parameter:
+        return self._param(shape, logical, ("ones", None))
 
-    def const(self, value) -> nn.Parameter:
+    def const(self, value, logical=None) -> nn.Parameter:
         value = torch.as_tensor(value, dtype=torch.float32)
-        return self._param(value.shape, ("const", value))
+        return self._param(value.shape, logical, ("const", value))
 
     @staticmethod
     @torch.no_grad()
@@ -90,6 +101,15 @@ class ParamInit:
                 p.copy_(arg.to(p.dtype))
             else:
                 p.fill_(1.0)
+
+
+def abstract_params(module: nn.Module):
+    """(name -> shape-only tensor, name -> logical axes) of ``module``'s
+    parameters, in ``named_parameters()`` order: the JAX package's
+    ``abstract_params()`` pair, keyed by the port's parameter names."""
+    params = dict(module.named_parameters())
+    return ({n: p.detach() for n, p in params.items()},
+            {n: p.logical for n, p in params.items()})
 
 
 def span(name: str):
@@ -155,9 +175,10 @@ class MLP(nn.Module):
     def __init__(self, pi: ParamInit, d_model: int, d_ff: int,
                  gated: bool = True):
         super().__init__()
-        self.wi = pi.normal((d_model, d_ff))
-        self.wo = pi.normal((d_ff, d_model))
-        self.wg = pi.normal((d_model, d_ff)) if gated else None
+        self.wi = pi.normal((d_model, d_ff), ("embed", "mlp"))
+        self.wo = pi.normal((d_ff, d_model), ("mlp", "embed"))
+        self.wg = (pi.normal((d_model, d_ff), ("embed", "mlp")) if gated
+                   else None)
 
 
 def mlp_init(pi: ParamInit, d_model: int, d_ff: int, act: str = "silu",
@@ -178,7 +199,7 @@ def mlp_apply(p: MLP, x, act: str = "silu", compute_dtype=torch.bfloat16):
 def embed_init(pi: ParamInit, vocab: int, d_model: int) -> nn.Parameter:
     # 0.02 (GPT-2-style): with a tied output head a unit-variance embedding
     # puts the initial logits at O(sqrt(d)) and the initial loss ~4x ln V.
-    return pi.normal((vocab, d_model), scale=0.02)
+    return pi.normal((vocab, d_model), ("vocab", "embed"), scale=0.02)
 
 
 # ----------------------------------------------------------------------

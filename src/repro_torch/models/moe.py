@@ -63,10 +63,13 @@ class MoE(nn.Module):
                  num_experts: int, *, gated: bool = True,
                  shared_ff: int = 0):
         super().__init__()
-        self.router = pi.normal((d_model, num_experts), scale=0.02)
-        self.wi = pi.normal((num_experts, d_model, d_ff))
-        self.wo = pi.normal((num_experts, d_ff, d_model))
-        self.wg = (pi.normal((num_experts, d_model, d_ff)) if gated
+        up = ("expert", "embed", "expert_mlp")
+        self.router = pi.normal((d_model, num_experts), ("embed", None),
+                                scale=0.02)
+        self.wi = pi.normal((num_experts, d_model, d_ff), up)
+        self.wo = pi.normal((num_experts, d_ff, d_model),
+                            ("expert", "expert_mlp", "embed"))
+        self.wg = (pi.normal((num_experts, d_model, d_ff), up) if gated
                    else None)
         self.shared = (MLP(pi, d_model, shared_ff, gated=True) if shared_ff
                        else None)

@@ -41,16 +41,17 @@ class RGLRU(nn.Module):
     def __init__(self, pi: ParamInit, d_model: int, d_rnn: int, *,
                  d_conv: int = 4):
         super().__init__()
-        self.wx = pi.normal((d_model, d_rnn))
-        self.wy = pi.normal((d_model, d_rnn))
-        self.conv_w = pi.normal((d_conv, d_rnn), scale=0.5)
-        self.conv_b = pi.zeros((d_rnn,))
-        self.wa = pi.normal((d_rnn, d_rnn), scale=0.02)
-        self.ba = pi.zeros((d_rnn,))
-        self.wi = pi.normal((d_rnn, d_rnn), scale=0.02)
-        self.bi = pi.zeros((d_rnn,))
-        self.lam = pi.const(torch.linspace(0.5, 4.0, d_rnn))
-        self.out = pi.normal((d_rnn, d_model))
+        r = ("rnn",)
+        self.wx = pi.normal((d_model, d_rnn), ("embed", "rnn"))
+        self.wy = pi.normal((d_model, d_rnn), ("embed", "rnn"))
+        self.conv_w = pi.normal((d_conv, d_rnn), ("conv", "rnn"), scale=0.5)
+        self.conv_b = pi.zeros((d_rnn,), r)
+        self.wa = pi.normal((d_rnn, d_rnn), ("rnn", None), scale=0.02)
+        self.ba = pi.zeros((d_rnn,), r)
+        self.wi = pi.normal((d_rnn, d_rnn), ("rnn", None), scale=0.02)
+        self.bi = pi.zeros((d_rnn,), r)
+        self.lam = pi.const(torch.linspace(0.5, 4.0, d_rnn), r)
+        self.out = pi.normal((d_rnn, d_model), ("rnn", "embed"))
 
 
 def rglru_init(pi: ParamInit, d_model: int, d_rnn: int, *,

@@ -44,15 +44,17 @@ class Mamba2(nn.Module):
         nheads = d_inner // headdim
         conv_dim = d_inner + 2 * n_groups * d_state
         d_in_proj = 2 * d_inner + 2 * n_groups * d_state + nheads
-        self.in_proj = pi.normal((d_model, d_in_proj))
-        self.conv_w = pi.normal((d_conv, conv_dim), scale=0.5)
-        self.conv_b = pi.zeros((conv_dim,))
-        self.A_log = pi.const(torch.log(torch.linspace(1.0, 16.0, nheads)))
+        self.in_proj = pi.normal((d_model, d_in_proj), ("embed", "rnn"))
+        self.conv_w = pi.normal((d_conv, conv_dim), ("conv", "rnn"),
+                                scale=0.5)
+        self.conv_b = pi.zeros((conv_dim,), ("rnn",))
+        self.A_log = pi.const(torch.log(torch.linspace(1.0, 16.0, nheads)),
+                              ("heads",))
         self.dt_bias = pi.const(torch.log(torch.expm1(
-            torch.full((nheads,), 1e-2))))
-        self.D = pi.ones((nheads,))
-        self.norm = pi.ones((d_inner,))
-        self.out_proj = pi.normal((d_inner, d_model))
+            torch.full((nheads,), 1e-2))), ("heads",))
+        self.D = pi.ones((nheads,), ("heads",))
+        self.norm = pi.ones((d_inner,), ("rnn",))
+        self.out_proj = pi.normal((d_inner, d_model), ("rnn", "embed"))
 
 
 def mamba2_init(pi: ParamInit, d_model: int, *, d_state: int = 128,

@@ -28,9 +28,17 @@ JAX package stacks each pattern slot's cache on the period axis
 (``convert.cache_from_reference``/``cache_to_reference`` map the two).
 The serving horizon ``max_len`` is passed down the prefill's call; the
 JAX package sets it on the model.  The encoder-decoder family is
-:class:`repro_torch.models.whisper.WhisperED`.  The JAX package's
-``shard(...)`` layout constraints and ``cache_logical`` have no
-counterpart: one card, and placement is item 15.4 of ROADMAP.md.
+:class:`repro_torch.models.whisper.WhisperED`.
+
+Placement: every parameter carries its logical axes (``ParamInit``), the
+JAX package's less the leading ``"stack"`` axis of a period-stacked leaf,
+which has no counterpart in per-layer parameters (``RULES["stack"]`` is
+None, so it only ever adds a replicated dimension; ``convert.py`` puts it
+back).  ``abstract_params`` gives shapes and axes on the ``meta`` device,
+``cache_logical`` the cache's axes.  The JAX package's ``shard(...)``
+activation constraints are dropped (``parallel.sharding.shard`` is the
+identity): the port's placed step runs whole layers at one position a
+data index.
 """
 from __future__ import annotations
 
@@ -139,8 +147,9 @@ class Norm(nn.Module):
 
     def __init__(self, pi: L.ParamInit, d_model: int, kind: str):
         super().__init__()
-        self.scale = pi.ones((d_model,))
-        self.bias = pi.zeros((d_model,)) if kind != "rms" else None
+        self.scale = pi.ones((d_model,), ("embed",))
+        self.bias = (pi.zeros((d_model,), ("embed",)) if kind != "rms"
+                     else None)
 
 
 class Slot(nn.Module):
@@ -186,7 +195,8 @@ class StackedLM(nn.Module):
         self.embed = L.embed_init(pi, cfg.vocab, cfg.d_model)
         self.final_norm = self._norm_init(pi)
         self.head = (None if cfg.tie_embed
-                     else pi.normal((cfg.d_model, cfg.vocab)))
+                     else pi.normal((cfg.d_model, cfg.vocab),
+                                    ("embed", "vocab")))
         # each layer's spec: the pattern period by period, then the tail
         self.specs = tuple(cfg.pattern) * cfg.n_periods + cfg.tail_specs
         self.layers = nn.ModuleList(self._slot_init(pi, s)
@@ -571,3 +581,36 @@ class StackedLM(nn.Module):
         """:meth:`init_cache`'s shapes and dtypes on the ``meta`` device
         (no allocation)."""
         return self.init_cache(batch, max_len, device="meta")
+
+    def cache_logical(self, batch: int, max_len: int):
+        """Logical axes congruent with :meth:`init_cache`'s dict (the JAX
+        package's, less the leading ``"stack"`` axis of its period-stacked
+        slots)."""
+        del batch, max_len
+
+        def layer(spec: LayerSpec):
+            if spec.mixer == "attn":
+                kv = ("batch", "cache_seq", "kv_heads", None)
+                out = {"k": kv, "v": kv}
+                if spec.window is not None:
+                    out["pos"] = ("batch", None)
+            elif spec.mixer == "ssm":
+                out = {"ssm": ("batch", "heads", None, None),
+                       "conv": ("batch", None, "rnn")}
+            elif spec.mixer == "rec":
+                out = {"h": ("batch", "rnn"), "conv": ("batch", None, "rnn")}
+            else:
+                raise ValueError(spec.mixer)
+            if spec.mlp and spec.moe:
+                out["moe_cnt"] = ("batch", None)
+                out["moe_cap"] = ()
+            return out
+
+        return {i: layer(spec) for i, spec in enumerate(self.specs)}
+
+    def abstract_params(self):
+        """(name -> ``meta`` tensor, name -> logical axes) of the
+        parameters, built on the ``meta`` device (no allocation)."""
+        model = (self if self.device.type == "meta"
+                 else StackedLM(self.cfg, device="meta"))
+        return L.abstract_params(model)

@@ -11,7 +11,9 @@ parameterisation), its logits tied to the decoder's embedding.
 The JAX package stacks each layer kind's parameters and scans; the port
 keeps one module per layer (``enc_layers``, ``dec_layers``) and runs them
 in a loop, each under ``torch.utils.checkpoint`` when the config asks for
-``remat="full"``.
+``remat="full"``.  Each parameter carries the JAX package's logical axes
+less its stacked leaves' leading ``"stack"`` axis (``abstract_params``),
+and ``cache_logical`` gives the cache's.
 
 Serving: ``prefill`` encodes the frames once, projects the encoder's
 output through every decoder layer's cross-attention keys and values
@@ -79,9 +81,11 @@ class WhisperED(nn.Module):
             device = resolve_device(device)
         pi = L.ParamInit(cfg.param_dtype, device)
         c = cfg
-        self.enc_pos = pi.normal((c.enc_frames, c.d_model), scale=0.02)
+        self.enc_pos = pi.normal((c.enc_frames, c.d_model), (None, "embed"),
+                                 scale=0.02)
         self.dec_embed = L.embed_init(pi, c.vocab, c.d_model)
-        self.dec_pos = pi.normal((max_dec_len, c.d_model), scale=0.02)
+        self.dec_pos = pi.normal((max_dec_len, c.d_model), (None, "embed"),
+                                 scale=0.02)
         self.enc_layers = nn.ModuleList(EncoderLayer(pi, c)
                                         for _ in range(c.n_layers))
         self.dec_layers = nn.ModuleList(DecoderLayer(pi, c)
@@ -245,3 +249,19 @@ class WhisperED(nn.Module):
         """:meth:`init_cache`'s shapes and dtypes on the ``meta`` device
         (no allocation)."""
         return self.init_cache(batch, max_len, device="meta")
+
+    def cache_logical(self, batch: int, max_len: int):
+        """Logical axes congruent with :meth:`init_cache`'s dict (the JAX
+        package's less the leading ``"stack"`` axis of its stacked
+        layers)."""
+        del batch, max_len
+        kv = ("batch", "cache_seq", "kv_heads", None)
+        return {i: {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv}
+                for i in range(self.cfg.n_layers)}
+
+    def abstract_params(self):
+        """(name -> ``meta`` tensor, name -> logical axes) of the
+        parameters, built on the ``meta`` device (no allocation)."""
+        model = self if self.device.type == "meta" else WhisperED(
+            self.cfg, device="meta", max_dec_len=self.dec_pos.shape[0])
+        return L.abstract_params(model)

@@ -1,6 +1,11 @@
 """Host runtime of the port: restart supervision, the step watchdog and
 straggler detection (``fault_tolerance``), which the serving layer's shard
-supervisor runs on."""
+supervisor runs on, and elastic resharding onto another mesh
+(``elastic``)."""
+from repro_torch.runtime.elastic import (  # noqa: F401
+    elastic_remesh,
+    specs_for_mesh,
+)
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     RetryPolicy,
     StepWatchdog,
@@ -9,4 +14,4 @@ from repro_torch.runtime.fault_tolerance import (  # noqa: F401
 )
 
 __all__ = ["RetryPolicy", "run_with_restarts", "StepWatchdog",
-           "StragglerMonitor"]
+           "StragglerMonitor", "elastic_remesh", "specs_for_mesh"]

@@ -1069,3 +1069,97 @@ def test_lm_serve_batch_on_card_matches_host(cuda, arch):
     for got, want in zip(logits[str(cuda)], logits["cpu"]):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                    atol=1e-4 * float(want.abs().max()))
+
+
+# ------------------------------------------------------- LM placement
+def _smoke_llama(device):
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models.registry import get_model
+
+    model, cfg = get_model("llama3.2-1b", smoke=True, seed=0, device=device)
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq=32, global_batch=8, seed=5)
+    batches = [{k: torch.from_numpy(v) for k, v in
+                ds.global_batch_arrays(s).items()} for s in range(3)]
+    return model, cfg, batches
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_lm_placed_step_on_card_matches_one_device(cuda, shape):
+    """The placed step on the card named at 4 positions against the
+    one-device step on the card: (1, 4) bit for bit over 3 steps (the
+    same products on the same device), (2, 2) within the JAX package's
+    bars (loss rtol 5e-3, parameters max-abs 5e-2)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (make_placed_train_step,
+                                          make_train_step)
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.placement import gather
+
+    model, cfg, batches = _smoke_llama(cuda)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(model, cfg, lr_fn=lambda s: 1e-3)
+    want = [step(opt, {k: v.to(cuda) for k, v in b.items()})
+            for b in batches]
+    mesh = make_test_mesh(shape, devices=[cuda] * 4)
+    placed = make_placed_train_step(build_model(cfg, device="meta"), cfg,
+                                    mesh=mesh, params=init,
+                                    lr_fn=lambda s: 1e-3)
+    popt = adamw_init(placed.params)
+    got = [placed(popt, b) for b in batches]
+    assert all(s.device.type == "cuda" for p in placed.params.values()
+               for s in p.shards.flat)
+    for name, p in model.named_parameters():
+        g = gather(placed.params[name], cuda)
+        if shape == (1, 4):
+            assert torch.equal(g, p.detach()), name
+            assert torch.equal(gather(popt.mu[name], cuda), opt.mu[name])
+            assert torch.equal(gather(popt.nu[name], cuda), opt.nu[name])
+        else:
+            assert float((g - p.detach()).abs().max()) < 5e-2, name
+    for a, b in zip(want, got):
+        if shape == (1, 4):
+            assert float(a["loss"]) == float(b["loss"])
+            assert float(a["grad_norm"]) == float(b["grad_norm"])
+        else:
+            np.testing.assert_allclose(float(b["loss"]), float(a["loss"]),
+                                       rtol=5e-3)
+
+
+def test_lm_placement_on_card_restores_and_remeshes(cuda):
+    """A checkpoint written with no mesh restores placed on the card's
+    (2, 2) mesh, and ``elastic_remesh`` moves it to (1, 4) and (4, 1), bit
+    for bit, each position holding its resolved bytes on the card; a mesh
+    of the card and the host refuses a placed step."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_placed_train_step
+    from repro_torch.parallel.placement import gather
+    from repro_torch.runtime.elastic import elastic_remesh, specs_for_mesh
+
+    model, cfg, _ = _smoke_llama("cpu")
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    logical = {n: p.logical for n, p in model.named_parameters()}
+    mesh = make_test_mesh((2, 2), devices=[cuda] * 4)
+    with tempfile.TemporaryDirectory() as td:
+        mgr = CheckpointManager(td)
+        mgr.save(1, params, blocking=True)
+        tree = mgr.restore(1, params, shardings=specs_for_mesh(
+            logical, params, mesh, cfg.rules))
+    for shape in ((1, 4), (4, 1), (2, 2)):
+        tree = elastic_remesh(tree, logical,
+                              make_test_mesh(shape, devices=[cuda] * 4),
+                              cfg.rules)
+        for name, want in params.items():
+            pt = tree[name]
+            assert torch.equal(gather(pt, "cpu"), want), (shape, name)
+            nbytes = pt.sharding.shard_nbytes(tuple(want.shape), want.dtype)
+            assert (pt.nbytes_by_position() == nbytes).all()
+            assert all(s.device.type == "cuda" for s in pt.shards.flat)
+    mixed = make_test_mesh((2,), ("model",), devices=[cuda, "cpu"])
+    with pytest.raises(ValueError, match="one device type"):
+        make_placed_train_step(model, cfg, mesh=mixed, params=params,
+                               lr_fn=lambda s: 1e-3)

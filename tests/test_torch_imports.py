@@ -77,7 +77,11 @@ def test_port_imports_neither_jax_nor_repro():
                    "repro_torch.optim.adamw", "repro_torch.optim.grad",
                    "repro_torch.optim.schedule",
                    "repro_torch.launch.steps", "repro_torch.launch.train",
-                   "repro_torch.launch.serve"):
+                   "repro_torch.launch.serve",
+                   "repro_torch.parallel.placement",
+                   "repro_torch.parallel.sharding",
+                   "repro_torch.runtime.elastic",
+                   "repro_torch.launch.dryrun"):
         assert module in names, module
 
 
@@ -224,3 +228,25 @@ def test_port_examples_import_neither_jax_nor_repro(example):
                           str(SRC)], capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.parallel.sharding", {"RULES", "PartitionSpec",
+                                       "logical_to_spec", "shard",
+                                       "resolve_param_specs", "pad_vocab",
+                                       "fallback_log"}),
+    ("repro_torch.parallel.placement", {"NamedSharding", "PlacedTensor",
+                                        "device_put", "gather"}),
+    ("repro_torch.runtime.elastic", {"specs_for_mesh", "elastic_remesh"}),
+    ("repro_torch.launch.dryrun", {"run_cell", "main"}),
+    ("repro_torch.launch.steps", {"input_specs", "batch_logical",
+                                  "abstract_opt_state", "all_shardings",
+                                  "make_placed_train_step"}),
+])
+def test_placement_modules_import_alone(module, names):
+    """Each module of LM placement imports on its own, first in a fresh
+    interpreter, with ``jax`` and ``repro`` unimportable."""
+    out = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=SRC,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert names <= set(ast.literal_eval(out.stdout))
