@@ -54,14 +54,20 @@ The main paths, each through the entry points a user calls:
     ``elastic_remesh``, a checkpoint restored placed, and the dry run of
     two production cells.  No ``pallas_call`` (placement is
     ``NamedSharding`` and XLA's partitioner in the JAX package): no kernel
-    joins the line.
+    joins the line;
+  * slice 13, the dot-saving remat policies: llama3.2-1b, granite-moe and
+    whisper-tiny at full width trained under ``remat="full"``,
+    ``"dots_no_batch"`` and ``"dots"`` (selective activation
+    checkpointing a period), each policy's gradients equal to ``full``'s
+    bit for bit.  No ``pallas_call`` (``jax.checkpoint`` policies): no
+    kernel joins the line.
 
 Phases, one line each:
 
   1. platform   the card (nvidia-smi name and power limit), precision
   2. build      one nvcc per kernel source, all started together, for
                 sm_90a, in the background of the phases that launch no
-                kernel (13-15, then phase 7's index and phase 3's tree);
+                kernel (13-17, then phase 7's index and phase 3's tree);
                 ptxas' registers and spills per instance, failing if an
                 instance the main paths launch (bq = 64) spills
   3. data       host build of the data and the tree; index size
@@ -246,6 +252,24 @@ Phases, one line each:
                 llama3.2-1b ``train_4k`` and ``decode_32k`` on the 16 x 16
                 single-pod mesh of ``meta``: memory, FLOPs, collective
                 bytes and fallbacks (the 8 KV heads among them)
+17. lm-remat    (right after 16, also beside nvcc) the remat policies on
+                the train step's loss and gradients (``steps._step_grads``)
+                of the first batch at the initial parameters: (a)
+                llama3.2-1b at full width with phase 13's seed and batch
+                (4 x 2048 tokens, f32 parameters, bf16 compute),
+                ``dots_no_batch`` against ``full`` and, at 2
+                micro-batches, ``dots`` against ``full``; (b)
+                granite-moe-3b-a800m at full width with phase 14's batch
+                (parameters drawn on the card by their rules: the host
+                draw takes ~30 s), ``dots_no_batch`` against ``full``,
+                ``full``'s gradients kept on the host; (c) whisper-tiny at
+                full width with phase 14's frames and 448 decoder tokens,
+                both policies against ``full``; each bit for bit; then
+                each policy's step ms over 3 steps (CUDA events) and
+                ``max_memory_allocated`` (granite: ``dots_no_batch``'s;
+                phase 14 times its ``full``); (d) the ten archs' smoke
+                configs at f32, ``dots`` and ``dots_no_batch`` against the
+                card's own ``full`` bit for bit
   8. kernels    one JSON line, after every phase: per kernel its launches
                 (by phase), error and times
 
@@ -344,6 +368,12 @@ PLACE_STEPS, PLACE_LR, PLACE_F32_LAYERS = 3, 1e-3, 2
 PLACE_BITWISE, PLACE_DP = (1, 4), (2, 2)
 PLACE_CHAIN = ((1, 4), (4, 1), (2, 2))
 PLACE_DRY = ("train_4k", "decode_32k")
+# the dot-saving remat policies (phase 17): the policies, the warm steps
+# timed a policy, and the micro-batches of ``"dots"`` and its ``"full"``
+# comparison (at one micro-batch of 4 x 2048 tokens llama3.2-1b's f32
+# score blocks alone come to ~34 GiB under ``"dots"``)
+REMAT_POLICIES = ("full", "dots_no_batch", "dots")
+REMAT_STEPS, REMAT_MICRO = 3, 2
 SRC = Path(__file__).resolve().parent / "src"
 BUILD = Path(__file__).resolve().parent / "build"
 # the kernel instances the main paths launch (bq = 64; K2 in its three
@@ -459,14 +489,14 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
         failing=FAILING, dur_n=DUR_N, dur_shards=DUR_SHARDS,
         dur_writes=DUR_WRITES, dur_more=DUR_MORE, lift_n=LIFT_N,
         budgets=BUDGETS, lm_kw=None, lm_fam_kw=None,
-        lm_place_kw=None) -> dict:
+        lm_place_kw=None, lm_remat_kw=None) -> dict:
     """All phases on ``device`` at these sizes (the defaults are the full
     size; the plain ``dfs`` route, 2.6 s a query on the host, is checked
     on 8 queries to keep the script within its limit; ``sweep_n`` cuts
     slice 1's depth alone, ``lm_kw`` is passed to
     :func:`run_lm`, ``lm_fam_kw`` to :func:`run_lm_families` and
-    ``lm_place_kw`` to :func:`run_lm_placement`); returns the kernels
-    record."""
+    ``lm_place_kw`` to :func:`run_lm_placement`, ``lm_remat_kw`` to
+    :func:`run_lm_remat`); returns the kernels record."""
     import torch
 
     from repro_torch.kernels import _build
@@ -483,7 +513,8 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
 
     # 2. build every kernel, one nvcc per source, all at once, while the
     # phases that launch no kernel run: 13-14 train the LM, 15 serves it,
-    # 16 places it, then 7's index and 3's tree are built on the host;
+    # 16 places it, 17 trains it under each remat policy, then 7's index
+    # and 3's tree are built on the host;
     # checked before phase 4
     ready = None
     if device.type == "cuda":
@@ -520,6 +551,9 @@ def run(device, *, n=1_000_000, d=128, queries=1024, n0=256,
     t0 = time.perf_counter()
     run_lm_placement(device, card, **(lm_place_kw or {}))
     log("lm-placement", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    run_lm_remat(device, card, **(lm_remat_kw or {}))
+    log("lm-remat", phase_seconds=f"{time.perf_counter() - t0:.1f}")
     stacked = build_stacked(device, n=n, d=d, queries=queries, n0=n0,
                             fresh=fresh, deletes=deletes)
     k1, frozen = run_sweep(device, card, n=sweep_n or n, d=d,
@@ -4020,6 +4054,205 @@ def place_restore(device, card) -> None:
     if not (same and (refused or device.type == "cpu")):
         raise AssertionError(f"restore onto (2,2): bit for bit {same}; "
                              f"mixed mesh refused {refused}")
+
+
+def run_lm_remat(device, card, *, cfg=None, moe_cfg=None, ed_cfg=None,
+                 batch=LM_BATCH, seq=LM_SEQ, dec_seq=FAM_DEC_SEQ,
+                 steps=REMAT_STEPS, micro=REMAT_MICRO,
+                 smoke_archs=None) -> None:
+    """Phase 17, the dot-saving remat policies: (a) ``LM_ARCH`` at full
+    width (or ``cfg``, a cut of it for a rehearsal) under each policy,
+    ``"dots"`` and its ``"full"`` comparison at ``micro`` micro-batches;
+    (b) ``FAM_MOE`` (or ``moe_cfg``) under ``"full"`` and
+    ``"dots_no_batch"``; (c) ``FAM_ED`` (or ``ed_cfg``) under all three;
+    (d) the smoke configs of ``smoke_archs`` (every arch when None) at f32
+    under each policy.  Each policy's loss and gradients equal
+    ``"full"``'s bit for bit at the same parameters, batch and
+    micro-batches."""
+    from repro_torch.models.registry import ARCH_IDS, get_config
+
+    llama = cfg or get_config(LM_ARCH)
+    remat_case(device, card, LM_ARCH, llama, batch=batch, seq=seq,
+               runs=(("full", 1), ("dots_no_batch", 1), ("full", micro),
+                     ("dots", micro)),
+               timed=steps, entry=llama == get_config(LM_ARCH))
+    remat_case(device, card, FAM_MOE, moe_cfg or get_config(FAM_MOE),
+               batch=batch, seq=seq,
+               runs=(("full", 1), ("dots_no_batch", 1)), timed=steps,
+               time_full=False, card_init=True)
+    remat_case(device, card, FAM_ED, ed_cfg or get_config(FAM_ED),
+               batch=batch, seq=dec_seq,
+               runs=tuple((p, 1) for p in REMAT_POLICIES), timed=steps)
+    remat_smoke(device, card, smoke_archs or ARCH_IDS)
+    free_device(device)
+
+
+def card_fill(model, seed: int) -> None:
+    """Draw ``model``'s parameters on its device by each parameter's
+    ``ParamInit`` rule, from a generator of the device seeded with
+    ``seed``: the rules' distributions in milliseconds, where the host
+    generator of ``ParamInit.fill`` (the same numbers on every device)
+    takes ~30 s for a 3.3e9-parameter model.  Other numbers than the
+    seed's: for checks that compare a model with itself."""
+    import torch
+
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            kind, arg = p.init_rule
+            if kind == "normal":
+                p.normal_(0.0, arg, generator=gen)
+            elif kind == "zeros":
+                p.zero_()
+            elif kind == "const":
+                p.copy_(arg.to(p.dtype))
+            else:
+                p.fill_(1.0)
+
+
+def remat_case(device, card, arch, cfg, *, batch, seq, runs, timed,
+               time_full=True, entry=False, card_init=False) -> None:
+    """(a)-(c) One model under the policies of ``runs`` ((policy,
+    micro-batches), each ``"full"`` before the policies it judges): the
+    train step's loss and gradients (``steps._step_grads``) of the first
+    ``SyntheticLMDataset`` batch at the initial parameters, ``"full"``'s
+    kept on the host, each other policy's equal to them bit for bit; then
+    ``timed`` steps of ``make_train_step`` a policy (CUDA events) and its
+    ``max_memory_allocated``, the peak reset before each."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import _step_grads, make_train_step
+    from repro_torch.models.registry import build_model, get_model
+    from repro_torch.optim import adamw_init
+
+    free_device(device)
+    t0 = time.perf_counter()
+    if entry:  # the entry point a user calls, phase 13's parameters
+        model, _ = get_model(arch, seed=SEED, device=device)
+    elif card_init:
+        model = build_model(cfg, device="meta")
+        rules = [p.init_rule for p in model.parameters()]
+        model.to_empty(device=device)
+        for p, rule in zip(model.parameters(), rules):
+            p.init_rule = rule
+        card_fill(model, SEED)
+    else:
+        model = build_model(cfg, seed=SEED, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    init = ("SEED on the host (ParamInit.fill)" if not card_init
+            else "SEED on the card (card_fill)")
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq=seq, global_batch=batch,
+                            seed=SEED)
+    arrays = ds.global_batch_arrays(0)
+    arrays.update(ds.extra_arrays(0, cfg))
+    b0 = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    leaves = list(model.parameters())
+    refs = {}
+    for policy, n_micro in runs:
+        pcfg = dataclasses.replace(cfg, remat=policy)
+        model.cfg = pcfg
+        (loss, nll, aux, grads), ms = timed_call(
+            lambda: _step_grads(model, pcfg, leaves, b0, n_micro), device)
+        if policy == "full":
+            refs[n_micro] = (loss.to("cpu", copy=True),
+                             [g.to("cpu", copy=True) for g in grads])
+            same = "reference"
+        else:
+            ref_loss, ref_grads = refs[n_micro]
+            bad = [i for i, (g, r) in enumerate(zip(grads, ref_grads))
+                   if not torch.equal(g, r.to(device))]
+            if not torch.equal(loss.cpu(), ref_loss) or bad:
+                names = [n for n, _ in model.named_parameters()]
+                raise AssertionError(
+                    f"{arch} remat={policy} n_micro={n_micro}: loss "
+                    f"{float(loss)} vs full {float(ref_loss)}, gradients "
+                    f"not bit for bit: {[names[i] for i in bad][:8]}")
+            same = "bit for bit"
+        log("lm-remat", card=repr(card), arch=cfg.name, policy=policy,
+            n_micro=n_micro, batch=batch, seq=seq,
+            dtypes=f"{cfg.param_dtype}/{cfg.compute_dtype}",
+            params=model.param_count(), init=repr(init),
+            init_s=f"{init_s:.1f}", loss=f"{float(loss):.6f}",
+            grads=len(grads), vs_full=repr(same),
+            loss_and_grads_ms=f"{ms:.1f}")
+        del loss, nll, aux, grads
+    del refs
+    for policy, n_micro in runs:
+        if policy == "full" and not time_full:
+            continue
+        pcfg = dataclasses.replace(cfg, remat=policy)
+        model.cfg = pcfg
+        free_device(device)
+        if device.type == "cuda":
+            torch.cuda.reset_accumulated_memory_stats()
+        opt = adamw_init(dict(model.named_parameters()))
+        step = make_train_step(model, pcfg, lr_fn=lambda s: PLACE_LR,
+                               n_micro=n_micro)
+        ms = [timed_call(lambda: step(opt, b0), device)[1]
+              for _ in range(timed)]
+        cuda = device.type == "cuda"
+        log("lm-remat-timing", card=repr(card), arch=cfg.name,
+            policy=policy, n_micro=n_micro, batch=batch, seq=seq,
+            step_ms=",".join(f"{x:.1f}" for x in ms),
+            step_ms_median=f"{statistics.median(ms):.1f}",
+            tokens_per_s=f"{batch * seq / (statistics.median(ms) / 1e3):.0f}",
+            max_memory_allocated_gib=_gib(
+                torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                else None),
+            max_memory_reserved_gib=_gib(
+                torch.cuda.max_memory_reserved() / 2 ** 30 if cuda
+                else None),
+            alloc_retries=(torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0) if cuda else "not measured"))
+        del opt, step
+    model.cfg = cfg
+    del model, leaves, b0
+    free_device(device)
+
+
+def remat_smoke(device, card, archs) -> None:
+    """(d) Each arch's smoke config at f32 compute on the card: the loss
+    and every gradient of one seeded batch under each policy equal the
+    card's own ``"full"`` ones bit for bit."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models.registry import build_model, get_config
+
+    t0 = time.perf_counter()
+    for arch in archs:
+        base = dataclasses.replace(get_config(arch, smoke=True),
+                                   compute_dtype=torch.float32)
+        model = build_model(base, seed=SEED, device=device)
+        ds = SyntheticLMDataset(vocab=base.vocab, seq=64, global_batch=4,
+                                seed=SEED)
+        arrays = ds.global_batch_arrays(0)
+        arrays.update(ds.extra_arrays(0, base))
+        b0 = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        got = {}
+        for policy in REMAT_POLICIES:
+            model.cfg = dataclasses.replace(base, remat=policy)
+            loss, _ = lm_loss(model, model.cfg, b0)
+            got[policy] = (loss.detach(), torch.autograd.grad(
+                loss, list(model.parameters())))
+        ref_loss, ref = got["full"]
+        for policy in REMAT_POLICIES[1:]:
+            loss, grads = got[policy]
+            if not (torch.equal(loss, ref_loss) and all(
+                    torch.equal(a, b) for a, b in zip(grads, ref))):
+                raise AssertionError(f"{arch} smoke remat={policy}: loss "
+                                     f"or gradients differ from full's")
+        log("lm-remat-smoke", card=repr(card), arch=f"{arch} smoke",
+            compute="f32", policies=",".join(REMAT_POLICIES),
+            loss=f"{float(ref_loss):.6f}", grads=len(ref),
+            vs_full="'bit for bit'")
+    log("lm-remat-smoke", archs=len(archs),
+        seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 def main() -> int:

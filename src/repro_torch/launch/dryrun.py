@@ -205,9 +205,10 @@ def _memory(cells: dict, kind: str) -> tuple[dict, dict]:
 
 def _apply_opts(cfg, opt: str):
     """The JAX package's hill-climb knobs, comma-separated, e.g.
-    ``headpad16,kvchunk=2048,capacity=1.0,rules.expert=data``.  A knob
-    the port cannot honour raises: ``remat=`` other than ``full``
-    (``NotImplementedError``, as the model does), ``seqshard``
+    ``headpad16,remat=dots_no_batch,kvchunk=2048,capacity=1.0,
+    rules.expert=data``.  ``remat=`` sets the config's policy (the model
+    raises ``KeyError`` for a name it does not know, as the JAX package's
+    lookup does).  A knob the port cannot honour raises: ``seqshard``
     (``NotImplementedError``: it sets an activation constraint, and the
     port's ``shard`` is the identity), an unknown knob (``ValueError``)."""
     for tok in (opt or "").split(","):
@@ -217,11 +218,7 @@ def _apply_opts(cfg, opt: str):
         if tok.startswith("headpad"):
             cfg = dataclasses.replace(cfg, pad_heads_to=int(tok[7:]))
         elif tok.startswith("remat="):
-            if tok[6:] != "full":
-                raise NotImplementedError(
-                    f"{tok}: the JAX package's dot-saving policies are not "
-                    f"ported")
-            cfg = dataclasses.replace(cfg, remat="full")
+            cfg = dataclasses.replace(cfg, remat=tok[6:])
         elif tok.startswith("kvchunk="):
             cfg = dataclasses.replace(cfg, kv_chunk=int(tok[8:]))
         elif tok.startswith("capacity="):

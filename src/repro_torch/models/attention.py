@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.launch.platform import resolve_device
-from repro_torch.models.layers import ParamInit, apply_rope, span
+from repro_torch.models.layers import ParamInit, apply_rope, product, span
 
 __all__ = ["Attention", "attn_init", "gqa_attention", "local_attention",
            "decode_attention", "attn_apply", "attn_decode", "init_kv_cache"]
@@ -76,8 +76,9 @@ def attn_init(pi: ParamInit, d_model, n_heads, n_kv, head_dim, *,
 
 def _proj(x, w, b=None, compute_dtype=torch.bfloat16):
     """(B, S, d) x (d, H, k) -> (B, S, H, k) in the compute dtype."""
-    y = torch.tensordot(x.to(compute_dtype), w.to(compute_dtype),
-                        dims=([2], [0]))
+    x, w = x.to(compute_dtype), w.to(compute_dtype)
+    with product(False):
+        y = torch.tensordot(x, w, dims=([2], [0]))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -111,10 +112,11 @@ def _mask_block(pq, pk, causal, window):
 def _dot32(a, b):
     """``a @ b`` with f32 results: products of compute-dtype operands
     accumulated in f32 (XLA's ``preferred_element_type=f32``); f64
-    operands stay f64."""
+    operands stay f64.  A batched product (batch and heads)."""
     if a.dtype not in (torch.float32, torch.float64):
         a, b = a.float(), b.float()
-    return torch.matmul(a, b)
+    with product(True):
+        return torch.matmul(a, b)
 
 
 def _flash_fwd(q, k, v, pos_q, pos_k, *, causal, window, nq, nk, Cq, Ck,
@@ -314,14 +316,17 @@ def local_attention(q, k, v, pos, *, window: int, scale=None,
         pb = pos.reshape(nb, W)
         p2 = torch.cat([F.pad(pb, (0, 0, 1, 0), value=far)[:-1], pb], dim=1)
 
-        s = torch.einsum("bnqhd,bnkhd->bnhqk", qb.float(), k2.float())
+        qf, kf = qb.float(), k2.float()
+        with product(True):
+            s = torch.einsum("bnqhd,bnkhd->bnhqk", qf, kf)
         dq = pb[None, :, None, :, None]
         dk = p2[None, :, None, None, :]
         mask = (dq >= dk) & (dq - dk < W)
         s = torch.where(mask, s, _NEG)
         p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bnhqk,bnkhd->bnqhd", p.to(compute_dtype).float(),
-                           v2.float())
+        pf, vf = p.to(compute_dtype).float(), v2.float()
+        with product(True):
+            out = torch.einsum("bnhqk,bnkhd->bnqhd", pf, vf)
         return out.reshape(B, Sp, Hq, D)[:, :S].to(compute_dtype)
 
 
@@ -423,10 +428,13 @@ def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
 
 
 def _out_proj(p: Attention, o, compute_dtype):
-    """(B, S, H, hd) -> (B, S, E): the out-projection and its bias."""
+    """(B, S, H, hd) -> (B, S, E): the out-projection and its bias (a
+    ``residual`` product)."""
     B, S, H, hd = o.shape
-    out = torch.matmul(o.to(compute_dtype).reshape(B, S, H * hd),
-                       p.wo.to(compute_dtype).reshape(H * hd, -1))
+    o = o.to(compute_dtype).reshape(B, S, H * hd)
+    w = p.wo.to(compute_dtype).reshape(H * hd, -1)
+    with product(False, residual=True):
+        out = torch.matmul(o, w)
     if p.bo is not None:
         out = out + p.bo.to(out.dtype)
     return out

@@ -14,14 +14,22 @@ Conventions, as in the JAX package:
     products of parameters with activations come out in the compute dtype.
 
 ``scan_layers`` has no counterpart: the port runs its layers in a Python
-loop (``StackedLM.apply``), each layer under ``torch.utils.checkpoint``
-when the config asks for ``remat="full"``.
+loop (``StackedLM.apply``), each period under ``torch.utils.checkpoint``
+as the config's ``remat`` asks (``transformer._remat_wrap``).
+
+Every matrix product of the training path runs under :class:`product`,
+which states its structure -- with or without batch dimensions, and
+whether its output only enters the residual stream -- so that the
+dot-saving remat policies decide what to keep from the structure, as
+``jax.checkpoint_policies`` decides from ``dot_general``'s dimension
+numbers.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +38,7 @@ from torch import nn
 __all__ = [
     "ParamInit", "dense", "rmsnorm", "layernorm", "MLP", "mlp_init",
     "mlp_apply", "embed_init", "rope", "apply_rope", "span",
-    "abstract_params",
+    "abstract_params", "product", "product_tag", "period_end",
 ]
 
 
@@ -124,17 +132,80 @@ def span(name: str):
 
 
 # ----------------------------------------------------------------------
+# product tags, read by the remat policies
+# ----------------------------------------------------------------------
+
+# per thread: the backward, and with it a period's recompute, may run on
+# another thread than the forward
+_TAGS = threading.local()
+
+
+class product:
+    """Tags the one matrix product run inside it.  ``batched``: it has
+    batch dimensions (a dimension of both operands and of the output,
+    ``dot_general``'s batch dimensions: the attention's score and p.v
+    blocks, the grouped expert products, the SSD's chunk products), not
+    a weight product such as ``bsd,dh->bsh``.  ``residual``: its output
+    only enters the residual stream (a sublayer's output projection).
+    The structure is stated here, not read from the operator, since
+    ``torch.einsum`` lowers a product without batch dimensions to ``bmm``
+    of batch 1 as readily as a batched one."""
+
+    __slots__ = ("tag", "prev")
+
+    def __init__(self, batched: bool, residual: bool = False):
+        self.tag = (batched, residual)
+
+    def __enter__(self):
+        self.prev = getattr(_TAGS, "product", None)
+        _TAGS.product = self.tag
+
+    def __exit__(self, *exc):
+        _TAGS.product = self.prev
+
+
+class period_end:
+    """Marks the last sublayer of a remat period (when ``active``): the
+    output of a ``residual`` product inside only enters the period's
+    output, so no backward operation of the period reads it."""
+
+    __slots__ = ("active", "prev")
+
+    def __init__(self, active: bool = True):
+        self.active = active
+
+    def __enter__(self):
+        self.prev = getattr(_TAGS, "end", False)
+        _TAGS.end = self.prev or self.active
+
+    def __exit__(self, *exc):
+        _TAGS.end = self.prev
+
+
+def product_tag():
+    """(batched, residual, at the period's end) of the product being run,
+    or None outside any :class:`product`."""
+    tag = getattr(_TAGS, "product", None)
+    if tag is None:
+        return None
+    return tag + (getattr(_TAGS, "end", False),)
+
+
+# ----------------------------------------------------------------------
 # primitives
 # ----------------------------------------------------------------------
 
 
-def dense(x, w, compute_dtype=None):
+def dense(x, w, compute_dtype=None, *, residual=False):
     """``x @ w`` contracting x's last dim with w's first; the output stays
-    in the compute dtype (cuBLAS accumulates in f32 inside)."""
+    in the compute dtype (cuBLAS accumulates in f32 inside).  A product
+    without batch dimensions; ``residual`` when its output only enters the
+    residual stream."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
-    return torch.tensordot(x, w, dims=([x.dim() - 1], [0]))
+    with product(False, residual):
+        return torch.tensordot(x, w, dims=([x.dim() - 1], [0]))
 
 
 def rmsnorm(x, scale, eps=1e-6, offset=0.0):
@@ -193,7 +264,7 @@ def mlp_apply(p: MLP, x, act: str = "silu", compute_dtype=torch.bfloat16):
         h = a(dense(x, p.wg, compute_dtype)) * h
     else:
         h = a(h)
-    return dense(h.to(compute_dtype), p.wo, compute_dtype)
+    return dense(h.to(compute_dtype), p.wo, compute_dtype, residual=True)
 
 
 def embed_init(pi: ParamInit, vocab: int, d_model: int) -> nn.Parameter:

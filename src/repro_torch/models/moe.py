@@ -28,6 +28,7 @@ from repro_torch.models.layers import (
     ParamInit,
     dense,
     mlp_apply,
+    product,
     span,
 )
 
@@ -47,11 +48,13 @@ def moe_capacity(seq_len: int, top_k: int, num_experts: int,
 def _gdot(eq, a, b):
     """Grouped expert product.  On the card the compute-dtype operands go
     to the tensor cores, which accumulate in f32; on the host both are
-    upcast to f32 (the JAX package's CPU branch)."""
+    upcast to f32 (the JAX package's CPU branch).  A batched product (the
+    expert axis)."""
     with span("moe.experts"):
-        if a.device.type == "cuda":
+        if a.device.type != "cuda":
+            a, b = a.float(), b.float()
+        with product(True):
             return torch.einsum(eq, a, b)
-        return torch.einsum(eq, a.float(), b.float())
 
 
 class MoE(nn.Module):

@@ -113,7 +113,7 @@ def rglru_apply(p: RGLRU, u, *, compute_dtype=torch.bfloat16,
                        b[:, 1:]], dim=1)
     h = linear_scan(a, b)
     y = h.to(compute_dtype) * g.to(compute_dtype)
-    out = dense(y, p.out, compute_dtype).to(u.dtype)
+    out = dense(y, p.out, compute_dtype, residual=True).to(u.dtype)
     if return_state:
         return out, h[:, -1]
     return out

@@ -25,7 +25,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import ParamInit, dense, rmsnorm, span
+from repro_torch.models.layers import (
+    ParamInit,
+    dense,
+    product,
+    rmsnorm,
+    span,
+)
 
 __all__ = ["Mamba2", "mamba2_init", "mamba2_apply", "mamba2_decode",
            "mamba2_state", "ssd_chunked"]
@@ -91,12 +97,14 @@ def _chunk_intra(xc, dtc, Bc, Cc, csum, mask):
     carry a chunk axis: xc (B, nc, Q, H, P), dtc and csum (B, nc, Q, H),
     Bc and Cc (B, nc, Q, N)."""
     with span("ssd.intra"):
-        CB = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+        with product(True):
+            CB = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
         seg = csum[:, :, :, None, :] - csum[:, :, None, :, :]  # (B,c,t,s,H)
         decay = torch.exp(torch.where(mask[None, None, :, :, None], seg,
                                       -math.inf))
         M = CB[..., None] * decay * dtc[:, :, None, :, :]
-        return torch.einsum("bctsh,bcshp->bcthp", M, xc)
+        with product(True):
+            return torch.einsum("bctsh,bcshp->bcthp", M, xc)
 
 
 def _chunk_state(xc, dtc, Bc, Cc, csum, s):
@@ -107,15 +115,18 @@ def _chunk_state(xc, dtc, Bc, Cc, csum, s):
     (B, nc, Q, H, P), the final state)."""
     with span("ssd.state"):
         wts = dtc * torch.exp(csum[:, :, -1:, :] - csum)     # (B,c,Q,H)
-        st = torch.einsum("bcsn,bcshp->bchnp", Bc, xc * wts[..., None])
+        xw = xc * wts[..., None]
+        with product(True):
+            st = torch.einsum("bcsn,bcshp->bchnp", Bc, xw)
         last = torch.exp(csum[:, :, -1])                     # (B,c,H)
         entering = []
         for c in range(xc.shape[1]):
             entering.append(s)
             s = s * last[:, c, :, None, None] + st[:, c]
-        y_inter = (torch.einsum("bctn,bchnp->bcthp", Cc,
-                                torch.stack(entering, dim=1))
-                   * torch.exp(csum)[..., None])
+        s_in = torch.stack(entering, dim=1)
+        with product(True):
+            y_inter = torch.einsum("bctn,bchnp->bcthp", Cc, s_in)
+        y_inter = y_inter * torch.exp(csum)[..., None]
         return y_inter, s
 
 
@@ -182,7 +193,8 @@ def mamba2_apply(p: Mamba2, u, *, chunk: int = 256,
     y = y + p.D.to(y.dtype)[None, None, :, None] * xh.to(y.dtype)
     y = y.reshape(Bsz, S, d_inner)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p.norm)
-    out = dense(y.to(compute_dtype), p.out_proj, compute_dtype).to(u.dtype)
+    out = dense(y.to(compute_dtype), p.out_proj, compute_dtype,
+                residual=True).to(u.dtype)
     if return_state:
         return out, s_final
     return out

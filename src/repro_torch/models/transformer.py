@@ -7,9 +7,10 @@ A model is ``n_periods`` repetitions of a *period pattern* (a tuple of
 stacks each pattern slot's parameters on a leading layer axis and scans
 over the periods; the port keeps one module per layer
 (``StackedLM.layers``, period by period, then the tail) and runs them in a
-Python loop, each period under ``torch.utils.checkpoint`` when the config
-asks for ``remat="full"``.  :mod:`repro_torch.models.convert` maps the two
-layouts onto each other.
+Python loop, each period under the config's remat policy
+(:func:`_remat_policy`: ``"full"``, ``"dots"``, ``"dots_no_batch"`` or
+None, as there).  :mod:`repro_torch.models.convert` maps the two layouts
+onto each other.
 
 Modes, as there:
   * ``apply``        -- the training forward of every family: the ``attn``
@@ -43,13 +44,18 @@ data index.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.launch.platform import resolve_device
 from repro_torch.models import attention as A
@@ -58,7 +64,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SSM
 
-__all__ = ["LayerSpec", "ArchConfig", "StackedLM"]
+__all__ = ["LayerSpec", "ArchConfig", "StackedLM", "_remat_policy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,20 +170,68 @@ class Slot(nn.Module):
         self.ln2, self.ffn = ln2, ffn
 
 
+# the matrix products as they reach the dispatcher: ``tensordot``,
+# ``matmul`` and ``einsum`` lower to ``mm``/``bmm``, ``addmm``/``baddbmm``
+# with a bias fused in
+_PRODUCT_OPS = frozenset([torch.ops.aten.mm, torch.ops.aten.addmm,
+                          torch.ops.aten.bmm, torch.ops.aten.baddbmm])
+
+
+def _save_products(batched: bool, ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``dots`` (``batched``) and
+    ``dots_no_batch``: a product's output is kept (``MUST_SAVE``) when its
+    :class:`layers.product` tag allows, everything else is recomputed.  A
+    ``residual`` product in a period's last sublayer is not kept: only the
+    period's output reads it, and the recompute stops before it (the JAX
+    package's partial evaluation drops it the same way).  A product with
+    no tag raises: its structure is unknown, so the policy cannot be
+    honoured."""
+    del ctx, args, kwargs
+    if op.overloadpacket not in _PRODUCT_OPS:
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    tag = L.product_tag()
+    if tag is None:
+        raise RuntimeError(
+            f"{op} runs in a remat period outside layers.product(): the "
+            "dot-saving policies need each product's structure")
+    is_batched, residual, at_end = tag
+    if (residual and at_end) or (is_batched and not batched):
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return CheckpointPolicy.MUST_SAVE
+
+
+def _remat_policy(name):
+    """The remat policy by name, as the JAX package's ``_remat_policy``:
+    ``"full"`` saves nothing but the period's input (``nothing_saveable``;
+    None here: plain checkpointing), ``"dots"`` also every product's
+    output (``checkpoint_dots``), ``"dots_no_batch"`` the outputs of the
+    products without batch dimensions, the weight products
+    (``checkpoint_dots_with_no_batch_dims``).  An unknown name raises
+    ``KeyError``."""
+    return {
+        "full": None,
+        "dots": functools.partial(_save_products, True),
+        "dots_no_batch": functools.partial(_save_products, False),
+    }[name]
+
+
 def _remat_wrap(fn, remat):
-    """A period's function under the config's remat policy: ``"full"``
-    saves only the period's input (``jax.checkpoint_policies.
-    nothing_saveable``), None saves everything."""
+    """A period's function under the config's remat policy: one
+    non-reentrant ``torch.utils.checkpoint`` a period, which keeps the
+    period's input; under ``"dots"``/``"dots_no_batch"`` selective
+    checkpointing also keeps the products the policy saves, and the
+    backward's recompute reads them in place of running them again.
+    None keeps everything (no checkpoint)."""
     if remat is None:
         return fn
-    if remat != "full":
-        raise NotImplementedError(
-            f"remat={remat!r}: the JAX package's dot-saving policies are not "
-            "ported, and no config uses them (ROADMAP.md, queue 1, "
-            "item 15)")
+    policy = _remat_policy(remat)
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return wrapped
 
@@ -253,17 +307,34 @@ class StackedLM(nn.Module):
     # forward pieces
     # ------------------------------------------------------------------
     def _slot_apply(self, spec: LayerSpec, p: Slot, x, sin, cos, *,
-                    mode="train", cache=None, pos_dec=None, max_len=None):
+                    mode="train", cache=None, pos_dec=None, max_len=None,
+                    last=False):
         """One layer: (x, the layer's cache, aux (2,) f32 -- the MoE's load
         and z losses or zeros).
 
         ``mode="train"`` returns no cache (None); ``"prefill"`` builds the
         layer's cache for a serving horizon of ``max_len`` positions;
         ``"decode"`` takes one token at positions ``pos_dec`` (B,) against
-        ``cache`` and returns it updated."""
+        ``cache`` and returns it updated.  ``last``: the layer ends a remat
+        period (:class:`layers.period_end` around its last sublayer)."""
+        with L.period_end(last and not spec.mlp):
+            x, new_cache, moe_state = self._mixer_apply(
+                spec, p, x, sin, cos, mode=mode, cache=cache,
+                pos_dec=pos_dec, max_len=max_len)
+        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+        if spec.mlp:
+            with L.period_end(last):
+                x, new_cache, aux = self._ffn_apply(
+                    spec, p, x, aux, mode=mode, new_cache=new_cache,
+                    moe_state=moe_state, max_len=max_len)
+        return x, (None if mode == "train" else new_cache), aux
+
+    def _mixer_apply(self, spec: LayerSpec, p: Slot, x, sin, cos, *, mode,
+                     cache, pos_dec, max_len):
+        """The mixer sublayer and its residual add: (x, the layer's cache
+        so far, the MoE's capacity carry from ``cache`` or None)."""
         c = self.cfg
         cd = c.compute_dtype
-        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         h = self._norm(p.ln1, x)
         # the MoE capacity carry rides in the layer's cache beside the
         # mixer's entries; the mixer's decoders see only their own
@@ -314,41 +385,46 @@ class StackedLM(nn.Module):
                                               compute_dtype=cd)
         else:
             raise ValueError(spec.mixer)
-        x = x + o
-        if spec.mlp:
-            h2 = self._norm(p.ln2, x)
-            if spec.moe:
-                moe_kw = dict(top_k=c.top_k, act=c.act,
-                              capacity_factor=c.capacity_factor,
-                              compute_dtype=cd)
-                if mode == "prefill":
-                    # the pre-drop expert counts and the serving horizon's
-                    # capacity ride on, so prefill and decode apply one
-                    # first-come rule: the full-length forward's
-                    cap = MOE.moe_capacity(max_len, c.top_k, c.num_experts,
-                                           c.capacity_factor)
-                    o2, mo, cnts = MOE.moe_apply(p.ffn, h2, capacity=cap,
-                                                 return_counts=True, **moe_kw)
-                    new_cache = dict(new_cache)
-                    new_cache["moe_cnt"] = cnts
-                    new_cache["moe_cap"] = torch.full(
-                        (), cap, dtype=torch.int32, device=x.device)
-                elif mode == "decode" and moe_state is not None:
-                    cnts, cap = moe_state
-                    o2, mo, cnts = MOE.moe_apply(p.ffn, h2,
-                                                 expert_counts=cnts,
-                                                 capacity_ref=cap,
-                                                 return_counts=True, **moe_kw)
-                    new_cache = dict(new_cache)
-                    new_cache["moe_cnt"] = cnts
-                    new_cache["moe_cap"] = cap
-                else:
-                    o2, mo = MOE.moe_apply(p.ffn, h2, **moe_kw)
-                aux = aux + torch.stack([mo["load_loss"], mo["z_loss"]])
+        return x + o, new_cache, moe_state
+
+    def _ffn_apply(self, spec: LayerSpec, p: Slot, x, aux, *, mode,
+                   new_cache, moe_state, max_len):
+        """The FFN sublayer (dense or MoE) and its residual add: (x, the
+        layer's cache, aux plus the MoE's losses)."""
+        c = self.cfg
+        cd = c.compute_dtype
+        h2 = self._norm(p.ln2, x)
+        if spec.moe:
+            moe_kw = dict(top_k=c.top_k, act=c.act,
+                          capacity_factor=c.capacity_factor,
+                          compute_dtype=cd)
+            if mode == "prefill":
+                # the pre-drop expert counts and the serving horizon's
+                # capacity ride on, so prefill and decode apply one
+                # first-come rule: the full-length forward's
+                cap = MOE.moe_capacity(max_len, c.top_k, c.num_experts,
+                                       c.capacity_factor)
+                o2, mo, cnts = MOE.moe_apply(p.ffn, h2, capacity=cap,
+                                             return_counts=True, **moe_kw)
+                new_cache = dict(new_cache)
+                new_cache["moe_cnt"] = cnts
+                new_cache["moe_cap"] = torch.full(
+                    (), cap, dtype=torch.int32, device=x.device)
+            elif mode == "decode" and moe_state is not None:
+                cnts, cap = moe_state
+                o2, mo, cnts = MOE.moe_apply(p.ffn, h2,
+                                             expert_counts=cnts,
+                                             capacity_ref=cap,
+                                             return_counts=True, **moe_kw)
+                new_cache = dict(new_cache)
+                new_cache["moe_cnt"] = cnts
+                new_cache["moe_cap"] = cap
             else:
-                o2 = L.mlp_apply(p.ffn, h2, act=c.act, compute_dtype=cd)
-            x = x + o2.to(x.dtype)
-        return x, (None if mode == "train" else new_cache), aux
+                o2, mo = MOE.moe_apply(p.ffn, h2, **moe_kw)
+            aux = aux + torch.stack([mo["load_loss"], mo["z_loss"]])
+        else:
+            o2 = L.mlp_apply(p.ffn, h2, act=c.act, compute_dtype=cd)
+        return x + o2.to(x.dtype), new_cache, aux
 
     def _attn_prefill_cache(self, spec: LayerSpec, k, v, max_len: int):
         """An attention layer's cache from the prefix's keys and values
@@ -470,8 +546,9 @@ class StackedLM(nn.Module):
         n = len(c.pattern)
 
         def period(h, aux, *layers):
-            for spec, lp in zip(c.pattern, layers):
-                h, _, a = self._slot_apply(spec, lp, h, sin, cos)
+            for j, (spec, lp) in enumerate(zip(c.pattern, layers)):
+                h, _, a = self._slot_apply(spec, lp, h, sin, cos,
+                                           last=j == n - 1)
                 aux = aux + a
             return h, aux
 

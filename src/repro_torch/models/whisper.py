@@ -10,10 +10,12 @@ parameterisation), its logits tied to the decoder's embedding.
 
 The JAX package stacks each layer kind's parameters and scans; the port
 keeps one module per layer (``enc_layers``, ``dec_layers``) and runs them
-in a loop, each under ``torch.utils.checkpoint`` when the config asks for
-``remat="full"``.  Each parameter carries the JAX package's logical axes
-less its stacked leaves' leading ``"stack"`` axis (``abstract_params``),
-and ``cache_logical`` gives the cache's.
+in a loop, each layer under the config's remat policy
+(``transformer._remat_wrap``: ``"full"``, ``"dots"``, ``"dots_no_batch"``
+or None; the decoder's when it collects no cache), as the JAX package
+applies it to each scanned body.  Each parameter carries the JAX
+package's logical axes less its stacked leaves' leading ``"stack"`` axis
+(``abstract_params``), and ``cache_logical`` gives the cache's.
 
 Serving: ``prefill`` encodes the frames once, projects the encoder's
 output through every decoder layer's cross-attention keys and values
@@ -122,8 +124,9 @@ class WhisperED(nn.Module):
                                 compute_dtype=cd)
             h = h + o
             m = _ln(lp.ln2, h)
-            return h + L.mlp_apply(lp.ffn, m, act="gelu",
-                                   compute_dtype=cd).to(h.dtype)
+            with L.period_end():
+                o = L.mlp_apply(lp.ffn, m, act="gelu", compute_dtype=cd)
+            return h + o.to(h.dtype)
 
         body = _remat_wrap(body, c.remat)
         for lp in self.enc_layers:
@@ -154,8 +157,9 @@ class WhisperED(nn.Module):
                                        kv_chunk=c.kv_chunk, compute_dtype=cd)
             h = h + o
             m = _ln(lp.ln2, h)
-            h = h + L.mlp_apply(lp.ffn, m, act="gelu",
-                                compute_dtype=cd).to(h.dtype)
+            with L.period_end():
+                o = L.mlp_apply(lp.ffn, m, act="gelu", compute_dtype=cd)
+            h = h + o.to(h.dtype)
             if not collect_cache:
                 return h
             pad = (0, 0, 0, 0, 0, max_len - S)

@@ -105,23 +105,50 @@ def test_run_cell_smoke(small_shapes, tmp_path, arch, shape):
     assert rec["positions"] == 8
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-tiny"])
+def test_run_cell_remat_opt_meters_the_policy(small_shapes, tmp_path, arch):
+    """``opt="remat=..."``: the cell's FLOPs are the policy's (the
+    products its backward recomputes), equal to a direct count and to the
+    metered total, falling from ``full`` to ``dots_no_batch`` to
+    ``dots``; the memory fields with no counterpart stay null, with their
+    reason."""
+    mesh = make_test_mesh((2, 4))
+    got = {}
+    for policy in ("full", "dots_no_batch", "dots"):
+        rec = dryrun.run_cell(arch, "train_4k", "single", smoke=True,
+                              mesh=mesh, out_dir=str(tmp_path),
+                              opt=f"remat={policy}")
+        assert rec["status"] == "ok", rec.get("trace")
+        assert rec["opt"] == f"remat={policy}"
+        flops = rec["cost_raw"]["flops"]
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  remat=policy)
+        assert flops == _direct_flops(cfg, "train_4k")
+        assert rec["metered"]["total"]["flops"] == flops
+        assert rec["memory"]["temp_size_in_bytes"] is None
+        assert rec["null_reasons"]["temp_size_in_bytes"]
+        got[policy] = flops
+    assert got["full"] > got["dots_no_batch"] > got["dots"]
+
+
 def test_apply_opts_knobs():
-    """``tests/test_launch.py:32``: the knobs the port honours, and a
-    refusal for those it cannot."""
+    """``tests/test_launch.py:32``: the JAX test's knobs, the port's other
+    knobs, and a refusal for ``seqshard``, which it cannot honour."""
     cfg = dryrun._apply_opts(get_config("glm4-9b"),
-                             "headpad16,remat=full,micro=4,capacity=1.0,"
-                             "rules.embed=data,kvchunk=2048,cachef8")
+                             "headpad16,remat=dots_no_batch,micro=4,"
+                             "capacity=1.0,rules.embed=data")
     assert cfg.pad_heads_to == 16 and cfg.hq_padded == 32
-    assert cfg.remat == "full"
+    assert cfg.remat == "dots_no_batch"
     assert cfg.n_micro == 4
-    assert cfg.capacity_factor == 1.0
     assert cfg.rules["embed"] == "data"
-    assert cfg.kv_chunk == 2048
-    assert cfg.cache_dtype == torch.float8_e4m3fn
     with pytest.raises(ValueError):
         dryrun._apply_opts(cfg, "bogus")
-    with pytest.raises(NotImplementedError):
-        dryrun._apply_opts(cfg, "remat=dots_no_batch")
+    cfg = dryrun._apply_opts(cfg, "remat=dots,kvchunk=2048,cachef8")
+    assert cfg.remat == "dots"
+    assert cfg.capacity_factor == 1.0
+    assert cfg.kv_chunk == 2048
+    assert cfg.cache_dtype == torch.float8_e4m3fn
+    assert dryrun._apply_opts(cfg, "remat=full").remat == "full"
     with pytest.raises(NotImplementedError):
         dryrun._apply_opts(cfg, "seqshard")
 

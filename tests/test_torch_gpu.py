@@ -1163,3 +1163,41 @@ def test_lm_placement_on_card_restores_and_remeshes(cuda):
     with pytest.raises(ValueError, match="one device type"):
         make_placed_train_step(model, cfg, mesh=mixed, params=params,
                                lr_fn=lambda s: 1e-3)
+
+
+_REMAT_ARCHS = ["gemma-2b", "glm4-9b", "granite-moe-3b-a800m",
+                "llama3.2-1b", "llama4-scout-17b-a16e", "mamba2-780m",
+                "phi-3-vision-4.2b", "recurrentgemma-9b", "smollm-360m",
+                "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", _REMAT_ARCHS)
+def test_lm_remat_policies_on_card_are_bit_for_bit(cuda, arch):
+    """Each arch's smoke config at its own dtypes on the card: the loss
+    and every gradient under ``"dots"`` and ``"dots_no_batch"`` equal
+    ``"full"``'s bit for bit (selective checkpointing reads the kept
+    products where ``full`` recomputes them)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models.registry import build_model, get_config
+
+    base = get_config(arch, smoke=True)
+    ds = SyntheticLMDataset(vocab=base.vocab, seq=64, global_batch=4, seed=3)
+    arrays = ds.global_batch_arrays(0)
+    arrays.update(ds.extra_arrays(0, base))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in arrays.items()}
+    model = build_model(base, seed=3, device=cuda)
+    got = {}
+    for remat in ("full", "dots", "dots_no_batch"):
+        model.cfg = dataclasses.replace(base, remat=remat)
+        loss, _ = lm_loss(model, model.cfg, batch)
+        got[remat] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    want_loss, want = got["full"]
+    for remat in ("dots", "dots_no_batch"):
+        loss, grads = got[remat]
+        assert torch.equal(loss, want_loss), remat
+        for a, b in zip(grads, want):
+            assert torch.equal(a, b), remat

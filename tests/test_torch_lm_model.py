@@ -221,17 +221,15 @@ def test_remat_full_equals_no_remat():
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, size=(2, 24)))
     grads = []
-    for remat in ("full", None):
+    for remat in ("full", None, "dots"):
         model = StackedLM(dataclasses.replace(cfg, remat=remat), seed=3,
                           device="cpu")
         logits, _ = model.apply(tokens)
         grads.append(torch.autograd.grad(logits.square().mean(),
                                          list(model.parameters())))
-    for a, b in zip(*grads):
+    for a, b, c in zip(*grads):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        StackedLM(dataclasses.replace(cfg, remat="dots"),
-                  device="cpu").apply(tokens)
+        assert torch.equal(c, a)
 
 
 def test_head_padding_exactness():
