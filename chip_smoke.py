@@ -251,7 +251,19 @@ Phases, one line each:
                 ``max_memory_allocated``; (f) ``launch/dryrun.run_cell`` of
                 llama3.2-1b ``train_4k`` and ``decode_32k`` on the 16 x 16
                 single-pod mesh of ``meta``: memory, FLOPs, collective
-                bytes and fallbacks (the 8 KV heads among them)
+                bytes and fallbacks (the 8 KV heads among them), and
+                ``train_4k`` again with ``seqshard``: the activations'
+                all-reduce wire bytes reappear as reduce-scatter plus
+                all-gather of equal wire bytes, the gradients' all-reduce
+                unchanged; (g) the tensor layout (the placed step built
+                under ``mesh_context``) at (2,2) without and with
+                ``seqshard`` (3 steps each) and at (1,4) with it (2
+                steps), within (c)'s bars, and on the first 2 layers at
+                f32 at (2,2) both ways within rtol 1e-5 / 1e-4; each
+                line with the step ms beside (a)'s and the storage
+                schedule's on the same mesh, ``max_memory_allocated``,
+                each position's parameter and moment bytes and the
+                last step's collectives by kind and part
 17. lm-remat    (right after 16, also beside nvcc) the remat policies on
                 the train step's loss and gradients (``steps._step_grads``)
                 of the first batch at the initial parameters: (a)
@@ -365,9 +377,20 @@ SERVE_ATTN_BAR, SERVE_BF16_BAR = 2e-2, 1e-1
 # of the card named at 4 positions (placed steps, then the elastic chain),
 # and the dry run's cells on the single-pod mesh
 PLACE_STEPS, PLACE_LR, PLACE_F32_LAYERS = 3, 1e-3, 2
+# the f32 runs' per-leaf bars against one device: each leaf's moments over
+# its largest, and the updated parameters over PLACE_LR where the first
+# moment is at least 1e-2 of the leaf's largest and 1e-6 (``place_run``).
+# On an H100 the storage schedule's (2,2) reads 2.2e-3 / 2.7e-3 and
+# 1.2e-4 (the rounding of parameters near 1); a wrong sum or a misplaced
+# shard reads 0.5 or more
+PLACE_MOMENT_RTOL, PLACE_STEP_ATOL = 1e-2, 1e-3
 PLACE_BITWISE, PLACE_DP = (1, 4), (2, 2)
 PLACE_CHAIN = ((1, 4), (4, 1), (2, 2))
 PLACE_DRY = ("train_4k", "decode_32k")
+# (g) the tensor layout: the meshes, ``seqshard`` and steps of each
+# bf16 run held to (a), and the f32 runs' meshes and ``seqshard``
+PLACE_TENSOR = (((2, 2), False, 3), ((2, 2), True, 3), ((1, 4), True, 2))
+PLACE_TENSOR_F32 = (((2, 2), False), ((2, 2), True))
 # the dot-saving remat policies (phase 17): the policies, the warm steps
 # timed a policy, and the micro-batches of ``"dots"`` and its ``"full"``
 # comparison (at one micro-batch of 4 x 2048 tokens llama3.2-1b's f32
@@ -3723,11 +3746,14 @@ def run_serve_smoke(device, card) -> None:
 
 def run_lm_placement(device, card, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ,
                      steps=PLACE_STEPS, f32_layers=PLACE_F32_LAYERS,
-                     dry=PLACE_DRY) -> None:
+                     dry=PLACE_DRY, tensor=PLACE_TENSOR,
+                     tensor_f32=PLACE_TENSOR_F32) -> None:
     """Phase 16, LM placement: ``LM_ARCH`` at full width (or ``cfg``, a
     cut of it for a rehearsal) trained on one device and placed on meshes
-    of ``device`` named at 4 positions, then moved between meshes, a
-    checkpoint restored placed, and the dry run's cells."""
+    of ``device`` named at 4 positions -- the storage schedule, then (g)
+    the tensor layout under ``mesh_context`` -- then moved between
+    meshes, a checkpoint restored placed, and the dry run's cells, with
+    and without ``seqshard``."""
     import torch
 
     from repro_torch.launch import dryrun
@@ -3742,42 +3768,67 @@ def run_lm_placement(device, card, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ,
     init, one = place_one_device(device, cfg, batches, full=full)
     free_device(device)
     # (b) (data=1, model=4): bit for bit (a)
+    storage = {}
     state = place_run(device, card, cfg, init, batches, PLACE_BITWISE, one,
                       bitwise=True)
+    storage[PLACE_BITWISE] = state["run"]
     del state
     free_device(device)
     # (c) (data=2, model=2): the JAX package's bars; its state feeds (d)
     state = place_run(device, card, cfg, init, batches, PLACE_DP, one,
                       bitwise=False)
-    del one
+    storage[PLACE_DP] = state["run"]
     # (d) the elastic chain on (c)'s state
     place_elastic(device, card, cfg, state)
-    del state, init
+    del state
     free_device(device)
+    # (g) the tensor layout at the JAX package's bars, beside the storage
+    # schedule's run on the same mesh
+    for shape, seqshard, n in tensor:
+        place_run(device, card, cfg, init, batches[:n], shape, one,
+                  bitwise=False, layout="tensor", seqshard=seqshard,
+                  storage=storage.get(shape))
+        free_device(device)
+    del one, init
     # (c) again at f32 compute on the first layers, one step from the same
     # parameters (the placement's own arithmetic, before AdamW amplifies
-    # it): the tight bars
+    # it): the tight bars; then (g) the same at f32 both ways
     f32 = dataclasses.replace(cfg, n_layers=f32_layers,
                               compute_dtype=torch.float32)
     init32, one32 = place_one_device(device, f32, batches[:1], full=False)
     free_device(device)
-    place_run(device, card, f32, init32, batches[:1], PLACE_DP, one32,
-              bitwise=False, f32=True)
-    del init32, one32
+    state = place_run(device, card, f32, init32, batches[:1], PLACE_DP,
+                      one32, bitwise=False, f32=True)
+    storage32 = state["run"]
+    del state
     free_device(device)
+    for shape, seqshard in tensor_f32:
+        place_run(device, card, f32, init32, batches[:1], shape, one32,
+                  bitwise=False, f32=True, layout="tensor",
+                  seqshard=seqshard,
+                  storage=storage32 if shape == PLACE_DP else None)
+        free_device(device)
+    del init32, one32
     # (d) a checkpoint restored placed, at smoke width; a mixed mesh raises
     place_restore(device, card)
-    # (f) the dry run on the production mesh (meta: no card)
-    for shape in dry:
+    # (f) the dry run on the production mesh (meta: no card), and its
+    # train cell again with ``seqshard``
+    recs = {}
+    for shape, opt in [(s, None) for s in dry] + [
+            (s, "seqshard") for s in dry if s.startswith("train")]:
         t0 = time.perf_counter()
-        rec = dryrun.run_cell(LM_ARCH, shape, "single",
+        rec = dryrun.run_cell(LM_ARCH, shape, "single", opt=opt,
                               out_dir=str(BUILD / "dryrun"))
         if rec["status"] != "ok":
-            raise AssertionError(f"dry run {LM_ARCH} {shape}: "
+            raise AssertionError(f"dry run {LM_ARCH} {shape} {opt}: "
                                  f"{rec.get('error')}")
+        recs[shape, opt] = rec
         coll = rec["collectives_raw"]
         fall = sorted({(a, d, m) for _, a, d, m in rec["fallbacks"]})
+        act = sorted({(a, d, m) for n, a, d, m in rec["fallbacks"]
+                      if n == "act"})
         log("lm-placement-dryrun", arch=LM_ARCH, shape=shape,
+            opt=opt or "", layout=rec.get("layout", "null"),
             mesh="single 16x16 (meta)", seconds=f"{time.perf_counter() - t0:.1f}",
             compile_s=rec["compile_s"],
             argument_bytes_per_position=rec["memory"][
@@ -3789,10 +3840,50 @@ def run_lm_placement(device, card, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ,
             collectives=("null" if coll is None
                          else json.dumps(coll["payload_bytes"])),
             wire_bytes=None if coll is None else coll["wire_bytes"],
-            fallbacks=json.dumps(fall))
+            wire_by_part="null" if coll is None else json.dumps(
+                coll["by_part"]),
+            fallbacks=json.dumps(fall), act_fallbacks=json.dumps(act))
         if ("kv_heads", 8) not in {(a, d) for a, d, _ in fall}:
             raise AssertionError(f"dry run {shape}: kv_heads 8 is not among "
                                  f"the fallbacks {fall}")
+        # a train cell's forward ran under the ambient mesh: its
+        # activations' KV heads fall back too, logged under "act"
+        if rec.get("layout") == "tensor" and ("kv_heads", 8) not in {
+                (a, d) for a, d, _ in act}:
+            raise AssertionError(f"dry run {shape} {opt}: no activation "
+                                 f"fallback of the 8 KV heads ({act})")
+    for shape in dry:
+        if (shape, "seqshard") in recs:
+            dry_seqshard(shape, recs[shape, None], recs[shape, "seqshard"])
+
+
+def dry_seqshard(shape, plain, seq) -> None:
+    """(f): ``seqshard`` turns the activations' all-reduces into
+    reduce-scatter/all-gather pairs of equal wire bytes (the embedding's
+    join and its dual become a reduce-scatter and an all-gather, and the
+    logits' gather and its dual add the other half of the pair), and
+    leaves the gradients' all-reduce over the data axis as it was."""
+    a = plain["collectives_raw"]["by_part"]
+    b = seq["collectives_raw"]["by_part"]
+    act_ar = a["activations"].get("all-reduce", 0)
+    act_rs = b["activations"].get("reduce-scatter", 0)
+    act_ag = b["activations"].get("all-gather", 0)
+    ok = (plain["layout"] == seq["layout"] == "tensor" and act_ar > 0
+          and set(a["activations"]) == {"all-reduce"}
+          and b["activations"].get("all-reduce", 0) == 0
+          and act_rs == act_ag and act_rs + act_ag == act_ar
+          and a["gradients"] == b["gradients"])
+    log("lm-placement-dryrun", shape=shape, check="seqshard",
+        activations_all_reduce_wire=act_ar,
+        seqshard_reduce_scatter_wire=act_rs,
+        seqshard_all_gather_wire=act_ag,
+        gradients_wire=json.dumps(a["gradients"]),
+        seqshard_gradients_wire=json.dumps(b["gradients"]), ok=ok)
+    if not ok:
+        raise AssertionError(f"dry run {shape} seqshard: activations "
+                             f"{a['activations']} -> {b['activations']}, "
+                             f"gradients {a['gradients']} -> "
+                             f"{b['gradients']}")
 
 
 def place_batches(cfg, batch, seq, steps) -> list:
@@ -3846,30 +3937,59 @@ def _gib(x):
 
 
 def place_run(device, card, cfg, init, batches, shape, one, *, bitwise,
-              f32=False) -> dict:
-    """(b)/(c)/(e): the placed step on ``device`` named at the positions of
-    ``shape`` (data, model) from ``init``, held to the one-device run
-    ``one``; each position's bytes held to the dry run's count.  Returns
-    the placed state."""
+              f32=False, layout="storage", seqshard=False,
+              storage=None) -> dict:
+    """(b)/(c)/(e)/(g): the placed step on ``device`` named at the
+    positions of ``shape`` (data, model) from ``init``, held to the
+    one-device run ``one``; each position's bytes held to the dry run's
+    count.  ``layout="tensor"`` builds and runs the step under
+    ``mesh_context`` (with ``seqshard``, ``seq_res`` on the model axis)
+    and logs it beside ``storage``, the storage schedule's run on the
+    same mesh, with the collectives of its last step by kind.  Returns
+    the placed state and the run's step ms and peak."""
+    import contextlib
+
     import torch
 
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import make_test_mesh, mesh_context
     from repro_torch.launch.steps import cell_shardings, make_placed_train_step
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init
+    from repro_torch.parallel.collectives import record_collectives
     from repro_torch.parallel.placement import device_put, gather
 
+    if seqshard:
+        cfg = dataclasses.replace(cfg, rules={**(cfg.rules or {}),
+                                              "seq_res": "model"})
     mesh = make_test_mesh(shape, devices=[device] * int(np.prod(shape)))
-    name = f"({shape[0]},{shape[1]})" + (" f32" if f32 else "")
+    name = (f"({shape[0]},{shape[1]})" + (" f32" if f32 else "")
+            + (" seqshard" if seqshard else ""))
+
+    def ambient():
+        return (mesh_context(mesh) if layout == "tensor"
+                else contextlib.nullcontext())
+
     t0 = time.perf_counter()
-    step = make_placed_train_step(build_model(cfg, device="meta"), cfg,
-                                  mesh=mesh, params=init,
-                                  lr_fn=lambda s: PLACE_LR)
+    with ambient():
+        step = make_placed_train_step(build_model(cfg, device="meta"), cfg,
+                                      mesh=mesh, params=init,
+                                      lr_fn=lambda s: PLACE_LR)
+    if step.layout != layout:
+        raise AssertionError(f"{name}: the {step.layout} layout, not "
+                             f"{layout}")
     opt = adamw_init(step.params)
     sync(device)
     place_s = time.perf_counter() - t0
-    runs = [timed_call(lambda b=b: step(opt, b), device) for b in batches]
+
+    def one_step(b):
+        with record_collectives() as notes:
+            out = step(opt, b)
+        return out, notes
+
+    runs = [timed_call(lambda b=b: one_step(b), device) for b in batches]
+    coll = dryrun.collective_bytes(runs[-1][0][1])
+    runs = [(m, t) for (m, _), t in runs]
     loss = [float(m["loss"]) for m, _ in runs]
     gnorm = [float(m["grad_norm"]) for m, _ in runs]
     ms = [t for _, t in runs]
@@ -3897,21 +4017,52 @@ def place_run(device, card, cfg, init, batches, shape, one, *, bitwise,
     # the state against (a), leaf by leaf on the card
     gaps = {"params": 0.0, "mu": 0.0, "nu": 0.0}
     apart = {"params": 0, "mu": 0, "nu": 0}
+    # each leaf's moments over its largest one's magnitude, and the
+    # parameters' gap over the learning rate where the first moment
+    # (g / 10 after one step) is at least 1e-2 of the leaf's largest and
+    # 1e-6: AdamW's first step g / (|g| + 1e-8) is a sign within 1e-3
+    # there, and rounding noise where the gradient is tiny; the worst leaf
+    worst = {"mu": (0.0, ""), "nu": (0.0, ""), "params": (0.0, "")}
     equal = True
-    for part, tree in (("params", step.params), ("mu", opt.mu),
-                       ("nu", opt.nu)):
-        for n, pt in tree.items():
-            got = gather(pt, device).float()
-            want = one[part][n].to(device).float()
+    for n in step.params:
+        mu1 = one["mu"][n].to(device).float()
+        scored = (mu1.abs() >= 1e-2 * mu1.abs().max()) & (mu1.abs() >= 1e-6)
+        for part, tree in (("params", step.params), ("mu", opt.mu),
+                           ("nu", opt.nu)):
+            got = gather(tree[n], device).float()
+            want = mu1 if part == "mu" else one[part][n].to(device).float()
             equal = equal and torch.equal(got, want)
             d = (got - want).abs()
             gaps[part] = max(gaps[part], float(d.max()))
             apart[part] += int((d > 1e-6).sum())
+            if part == "params":
+                r = (float(d[scored].max()) / PLACE_LR if bool(scored.any())
+                     else 0.0)
+            else:
+                top = float(want.abs().max())
+                r = float(d.max()) / top if top > 0 else float(d.max())
+            if r > worst[part][0]:
+                worst[part] = (r, n)
             del got, want, d
+        del mu1, scored
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(loss, one["loss"])]
     gn_rel = [abs(a - b) / abs(b) for a, b in zip(gnorm, one["grad_norm"])]
+    extra = {}
+    if layout == "tensor":
+        extra = dict(
+            storage_step_ms=("not measured" if storage is None else
+                             ",".join(f"{t:.1f}" for t in storage["ms"])),
+            storage_max_memory_allocated_gib=_gib(
+                None if storage is None else storage["peak"]),
+            params_bytes_by_position=json.dumps(
+                held["params"].ravel().tolist()),
+            opt_bytes_by_position=json.dumps(held["opt"].ravel().tolist()),
+            collectives_last_step=json.dumps(coll["payload_bytes"]),
+            collective_ops_last_step=json.dumps(coll["op_counts"]),
+            wire_by_part_last_step=json.dumps(coll["by_part"]))
     log("lm-placement", card=repr(card), arch=cfg.name, mesh=name,
-        positions=mesh.size, data_positions=len(step.data_positions),
+        layout=step.layout, positions=mesh.size,
+        data_positions=len(step.data_positions),
         layers=cfg.n_layers, compute=str(cfg.compute_dtype),
         steps=len(batches), place_s=f"{place_s:.1f}",
         step_ms=",".join(f"{t:.1f}" for t in ms),
@@ -3922,12 +4073,16 @@ def place_run(device, card, cfg, init, batches, shape, one, *, bitwise,
         grad_norm_rel=",".join(f"{x:.2e}" for x in gn_rel),
         max_abs_params=f"{gaps['params']:.3e}",
         max_abs_mu=f"{gaps['mu']:.3e}", max_abs_nu=f"{gaps['nu']:.3e}",
+        leaf_mu_rel=f"{worst['mu'][0]:.3e}", leaf_mu_worst=worst["mu"][1],
+        leaf_nu_rel=f"{worst['nu'][0]:.3e}", leaf_nu_worst=worst["nu"][1],
+        leaf_step_over_lr=f"{worst['params'][0]:.3e}",
+        leaf_step_worst=worst["params"][1],
         apart_1e6=json.dumps(apart), bit_for_bit=equal,
         bytes_per_position=json.dumps({k: int(v.flat[0])
                                        for k, v in held.items()}),
         counted_per_position=json.dumps(counted),
         max_memory_allocated_gib=_gib(peak),
-        one_device_max_memory_allocated_gib=_gib(one["peak_gib"]))
+        one_device_max_memory_allocated_gib=_gib(one["peak_gib"]), **extra)
     for part in held:
         if not (held[part] == counted[part]).all():
             raise AssertionError(f"{name} {part}: positions hold "
@@ -3944,6 +4099,14 @@ def place_run(device, card, cfg, init, batches, shape, one, *, bitwise,
                                    err_msg=f"{name} losses")
         np.testing.assert_allclose(gnorm, one["grad_norm"], rtol=1e-4,
                                    err_msg=f"{name} grad norms")
+        # leaf by leaf: the loss and the global norm cannot show a wrong
+        # sum or a misplaced shard on a small leaf
+        for part, bar in (("mu", PLACE_MOMENT_RTOL), ("nu", PLACE_MOMENT_RTOL),
+                          ("params", PLACE_STEP_ATOL)):
+            if not worst[part][0] <= bar:
+                raise AssertionError(f"{name} {part}: leaf {worst[part][1]} "
+                                     f"{worst[part][0]:.3e} over the bar "
+                                     f"{bar:.0e}")
     else:
         # the JAX package's bars (``tests/test_distributed.py:112-121``):
         # its test takes one step, so the first loss -- the same
@@ -3964,6 +4127,7 @@ def place_run(device, card, cfg, init, batches, shape, one, *, bitwise,
                                  f"from the one-device step's")
     return {"params": step.params, "mu": opt.mu, "nu": opt.nu,
             "count": opt.count, "mesh": mesh,
+            "run": {"ms": ms, "peak": peak},
             "logical": {n: p.logical for n, p in
                         build_model(cfg, device="meta").named_parameters()}}
 

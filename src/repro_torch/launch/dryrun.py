@@ -17,14 +17,22 @@ position (``launch.mesh.make_production_mesh``: 16 x 16, or 2 x 16 x 16):
   2. **The production pass** -- the cell's step at full depth on
      ``meta``, under ``torch.utils.flop_counter.FlopCounterMode``: the
      FLOPs of the whole global batch (``cost_raw``; the placed step runs
-     the same products, split by rows over its data positions).  For
-     training, the placed step's communication on the mesh
-     (``steps.make_placed_train_step(...).communicate``: its gathers,
-     gradient sum and scatter, recorded by
+     the same products, split over its positions).  For training, the
+     placed step's communication on the mesh
+     (``steps.make_placed_train_step(...).communicate``, recorded by
      ``parallel.collectives.record_collectives``) gives
-     ``collectives_raw``; the port places no prefill or decode step, so
-     theirs are null.  ``compile_s`` is this pass's seconds with the
-     placement's.
+     ``collectives_raw``.  A train cell runs both under
+     ``mesh_context(mesh)``, as the JAX package lowers one: the
+     forward's activation fallbacks (``"act"``) join ``fallbacks``, and
+     the attention-and-MLP decoders run the tensor layout (``layout: "tensor"``: the
+     activations' all-reduces, or with ``opt="seqshard"`` their
+     reduce-scatter/all-gather pairs, and the gradients' sums, counted
+     per layer kind rather than run at 256 positions); the families with
+     no layout yet keep the storage schedule (``layout: "storage"``, its
+     gathers, gradient sum and scatter) and name the ROADMAP item that
+     ports theirs (``layout_reason``).  The port places no prefill or
+     decode step, so theirs are null.  ``compile_s`` is this pass's
+     seconds with the placement's.
   3. **Metered** (single pod) -- the JAX package's three shallow variants
      (A = one period, B = two, C = one + the tail), run the same way, and
      ``F_total = F_fixed + n_periods * F_body + F_tail`` for FLOPs and
@@ -55,6 +63,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -85,14 +94,22 @@ SERVING_COLLECTIVES = ("the port places no prefill or decode step: they run "
 
 def collective_bytes(notes) -> dict:
     """Per-kind bytes (received, summed over the positions), op counts
-    and wire bytes (all-reduce 2x) of ``record_collectives`` notes."""
+    and wire bytes (all-reduce 2x) of ``record_collectives`` notes, and
+    the wire bytes by kind of each part of the step the notes name
+    (``"activations"``, ``"gradients"``, ...; ``by_part``)."""
     out = {k: 0 for k in _WIRE_MULT}
     count = {k: 0 for k in _WIRE_MULT}
-    for kind, nbytes, receivers in notes:
+    parts: dict = {}
+    for note in notes:
+        kind, nbytes, receivers = note
         out[kind] += nbytes * receivers
         count[kind] += 1
+        part = parts.setdefault(getattr(note, "part", None) or "other", {})
+        part[kind] = part.get(kind, 0) + int(
+            nbytes * receivers * _WIRE_MULT[kind])
     wire = int(sum(out[k] * _WIRE_MULT[k] for k in out))
-    return {"payload_bytes": out, "op_counts": count, "wire_bytes": wire}
+    return {"payload_bytes": out, "op_counts": count, "wire_bytes": wire,
+            "by_part": parts}
 
 
 def position_bytes(abstract, shardings) -> int:
@@ -141,41 +158,60 @@ def count_cell(shape_id, mesh, cfg) -> dict:
     of the whole global batch (``FlopCounterMode`` over the plain step:
     the placed step's products are the same, split by rows over its data
     positions), and for training the placed step's ``collectives`` on
-    ``mesh`` (``communicate``: its gathers, gradient sum and scatter) and
-    its ``data_positions``; None otherwise."""
+    ``mesh`` (``communicate``), its ``data_positions`` and its
+    ``layout``: ``"tensor"`` under ``mesh_context(mesh)`` for the
+    families the tensor layout covers, else ``"storage"`` with the ROADMAP
+    item that ports the family's layout as ``layout_reason``; None
+    otherwise.  A train cell of a family with a layout runs under
+    ``mesh_context(mesh)``, so its forward logs its activations'
+    fallbacks."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import mesh_context
     from repro_torch.launch.steps import (batch_specs, make_decode_step,
                                           make_placed_train_step,
                                           make_prefill_step, make_train_step)
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.parallel.collectives import record_collectives
+    from repro_torch.parallel.tensor import unported
 
     sh = SHAPES[shape_id]
     model = build_model(cfg, device="meta")
     specs = batch_specs(cfg, sh["kind"], sh["batch"], sh["seq"])
     out = {"collectives": None, "data_positions": None}
-    with FlopCounterMode(display=False) as fc:
-        if sh["kind"] == "train":
-            step = make_train_step(model, cfg, lr_fn=lambda s: 3e-4,
-                                   n_micro=cfg.n_micro)
-            step(adamw_init(dict(model.named_parameters())), specs)
-        elif sh["kind"] == "prefill":
-            make_prefill_step(model, cfg, max_len=sh["seq"] + 1)(specs)
-        else:
-            cache = model.abstract_cache(sh["batch"], sh["seq"])
-            make_decode_step(model, cfg)(cache, specs)
-    out["flops"] = int(fc.get_total_flops())
-    if sh["kind"] == "train":
-        placed = make_placed_train_step(model, cfg, mesh=mesh,
-                                        lr_fn=lambda s: 3e-4,
-                                        n_micro=cfg.n_micro)
-        with record_collectives() as notes:
-            placed.communicate(specs)
-        out["collectives"] = collective_bytes(notes)
-        out["data_positions"] = len(placed.data_positions)
+    train = sh["kind"] == "train"
+    if train:
+        out["layout_reason"] = unported(cfg)
+    # a train cell runs under the ambient mesh, as the JAX package lowers
+    # one: the forward's activation fallbacks (``shard``, logged under
+    # "act") reach the record, and the placed step runs the tensor
+    # layout; a family with no tensor layout yet keeps the storage
+    # schedule, and the record says so (``layout``, ``layout_reason``)
+    ctx = (mesh_context(mesh) if train and out["layout_reason"] is None
+           else contextlib.nullcontext())
+    with ctx:
+        with FlopCounterMode(display=False) as fc:
+            if train:
+                step = make_train_step(model, cfg, lr_fn=lambda s: 3e-4,
+                                       n_micro=cfg.n_micro)
+                step(adamw_init(dict(model.named_parameters())), specs)
+            elif sh["kind"] == "prefill":
+                make_prefill_step(model, cfg, max_len=sh["seq"] + 1)(specs)
+            else:
+                cache = model.abstract_cache(sh["batch"], sh["seq"])
+                make_decode_step(model, cfg)(cache, specs)
+        out["flops"] = int(fc.get_total_flops())
+        if train:
+            placed = make_placed_train_step(model, cfg, mesh=mesh,
+                                            lr_fn=lambda s: 3e-4,
+                                            n_micro=cfg.n_micro)
+            with record_collectives() as notes:
+                placed.communicate(specs)
+            out["collectives"] = collective_bytes(notes)
+            out["data_positions"] = len(placed.data_positions)
+            out["layout"] = placed.layout
     return out
 
 
@@ -206,11 +242,13 @@ def _memory(cells: dict, kind: str) -> tuple[dict, dict]:
 def _apply_opts(cfg, opt: str):
     """The JAX package's hill-climb knobs, comma-separated, e.g.
     ``headpad16,remat=dots_no_batch,kvchunk=2048,capacity=1.0,
-    rules.expert=data``.  ``remat=`` sets the config's policy (the model
-    raises ``KeyError`` for a name it does not know, as the JAX package's
-    lookup does).  A knob the port cannot honour raises: ``seqshard``
-    (``NotImplementedError``: it sets an activation constraint, and the
-    port's ``shard`` is the identity), an unknown knob (``ValueError``)."""
+    rules.expert=data,seqshard``.  ``remat=`` sets the config's policy
+    (the model raises ``KeyError`` for a name it does not know, as the
+    JAX package's lookup does).  ``seqshard`` maps ``seq_res`` to
+    ``"model"`` in the cell's ``cfg.rules`` (Megatron sequence
+    parallelism under the tensor layout), where the JAX package writes
+    its process-global ``RULES``: the port's ``RULES`` stays untouched.
+    An unknown knob raises ``ValueError``."""
     for tok in (opt or "").split(","):
         tok = tok.strip()
         if not tok:
@@ -228,9 +266,8 @@ def _apply_opts(cfg, opt: str):
         elif tok == "cachef8":
             cfg = dataclasses.replace(cfg, cache_dtype=torch.float8_e4m3fn)
         elif tok == "seqshard":
-            raise NotImplementedError(
-                "seqshard constrains the residual stream's layout; the "
-                "port's shard() is the identity")
+            cfg = dataclasses.replace(
+                cfg, rules={**(cfg.rules or {}), "seq_res": "model"})
         elif tok.startswith("rules."):          # rules.expert=data
             k, v = tok[6:].split("=")
             rules = dict(cfg.rules or {})
@@ -286,6 +323,10 @@ def run_cell(arch, shape_id, mesh_kind="single", *, meter=True,
         if prod["data_positions"]:
             rec["cost_raw"]["data_positions"] = prod["data_positions"]
         rec["collectives_raw"] = prod["collectives"]
+        if "layout" in prod:
+            rec["layout"] = prod["layout"]
+            if prod["layout_reason"]:
+                rec["layout_reason"] = prod["layout_reason"]
         rec["null_reasons"] = dict(NULL_REASONS)
         if prod["collectives"] is None:
             rec["null_reasons"]["collectives_raw"] = SERVING_COLLECTIVES

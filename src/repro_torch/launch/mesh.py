@@ -14,18 +14,23 @@ dry run (``make_production_mesh``: 16 x 16, or 2 x 16 x 16 across pods)
 name the ``meta`` device at every position by default -- the counterpart
 of the JAX package's 512 forced host devices: tensors placed there have
 shapes and no storage.
+
+:func:`mesh_context` sets an ambient mesh for the calling thread, as the
+JAX package's does: ``parallel.sharding.shard`` resolves activation specs
+against it, and the placed train step runs the tensor layout under it.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import itertools
+import threading
 
 import numpy as np
 import torch
 
 __all__ = ["DeviceMesh", "make_mesh", "make_serving_mesh", "mesh_context",
-           "make_production_mesh", "make_test_mesh"]
+           "current_mesh", "make_production_mesh", "make_test_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -160,10 +165,29 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"), *,
                      devices=["meta"] * n if devices is None else devices)
 
 
+_AMBIENT = threading.local()
+
+
+@contextlib.contextmanager
 def mesh_context(mesh):
-    """A context that does nothing.  It exists only so that code written
-    against the JAX package's ``mesh_context`` imports and runs unchanged:
-    the port's programs take their mesh as an argument, so there is no
-    ambient mesh to set."""
-    del mesh
-    return contextlib.nullcontext()
+    """Set ``mesh`` as the ambient mesh of this thread inside the block
+    (``jax.set_mesh``'s counterpart): :func:`current_mesh` returns it, and
+    the placed train step built or run under it lays the activations out
+    over its ``model`` axis (``parallel/tensor.py``).  Contexts nest (the
+    inner mesh wins until its block ends) and each thread has its own
+    stack; the block's end clears what it set, also on an exception."""
+    stack = getattr(_AMBIENT, "stack", None)
+    if stack is None:
+        stack = _AMBIENT.stack = []
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def current_mesh():
+    """The ambient mesh of this thread (the innermost
+    :func:`mesh_context`), or None."""
+    stack = getattr(_AMBIENT, "stack", None)
+    return stack[-1] if stack else None

@@ -19,14 +19,29 @@ Placement (the JAX package lowers the step with in/out shardings and lets
 GSPMD partition it; there is no GSPMD here): ``input_specs``,
 ``batch_logical``, ``abstract_opt_state`` and ``all_shardings`` resolve a
 cell's placement on ``meta`` tensors, and ``make_placed_train_step`` runs
-a step over placed parameters, ZeRO-3/FSDP style -- the mesh shards the
-parameters' and the optimiser's storage and the update, not the matrix
-products (no tensor parallelism).  A step gathers each parameter whole at
-one position a data index (coordinate 0 of the other mesh axes), runs the
-unchanged :func:`lm_loss` there on that index's rows of the batch, sums
-the gradients over the data positions (``psum``), clips them by the
-global norm of the whole gradients, sends each position its shard
-(``scatter``) and steps AdamW at every position on its own shards.
+a step over placed parameters.  The mesh shards the parameters' and the
+optimiser's storage by their resolved specs, and each position steps
+AdamW on its own shards.  The products run in one of two layouts
+(``train_step.layout``):
+
+  * ``"tensor"``, under an ambient mesh (``launch.mesh.mesh_context``),
+    for the attention-and-MLP decoders: the JAX package's activation
+    layout (``parallel/tensor.py``).  Every position computes on its own
+    parameter shards, the model axis joined by collectives (with
+    ``seqshard``, the residual stream's sequence split over it too).  The
+    loss is averaged over the data positions; each shard's gradient is
+    summed over the data positions, and the copies of a leaf the model
+    axis does not split (norm scales, biases, fallbacks) summed over the
+    model positions too, so the applied gradient is the one-device
+    gradient; the global norm counts each distinct shard once.
+  * ``"storage"``, without an ambient mesh (or on a model axis of 1 for
+    the families the tensor layout does not cover), ZeRO-3/FSDP style: a
+    step gathers each parameter whole at one position a data index
+    (coordinate 0 of the other mesh axes), runs the unchanged
+    :func:`lm_loss` there on that index's rows of the batch, sums the
+    gradients over the data positions (``psum``), clips them by the
+    global norm of the whole gradients and sends each position its shard
+    (``scatter``).
 """
 from __future__ import annotations
 
@@ -34,18 +49,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs import SHAPES, get_config
-from repro_torch.models.layers import span
+from repro_torch.launch.mesh import current_mesh, mesh_context
+from repro_torch.models.layers import lm_objective, span, xent_parts
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw_update, clip_by_global_norm
 from repro_torch.optim.adamw import OptState
+from repro_torch.optim.grad import sum_of_squares
 from repro_torch.parallel import collectives
+from repro_torch.parallel import tensor as TP
+from repro_torch.parallel.collectives import Note, PositionGroup
 from repro_torch.parallel.placement import (
     NamedSharding,
     PlacedTensor,
     device_put,
     gather,
 )
-from repro_torch.parallel.sharding import logical_to_spec
+from repro_torch.parallel.sharding import activation_context, logical_to_spec
 from repro_torch.runtime.elastic import specs_for_mesh, tree_map
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
@@ -124,30 +143,29 @@ def lm_loss(model, cfg, batch):
     :func:`model_extras`."""
     logits, aux = model.apply(batch["tokens"], **model_extras(cfg, batch))
     labels = batch["labels"].long()
-    logits = logits[:, -labels.shape[1]:]  # a VLM's prefix comes first
-    # streaming xent: lse - gold; the f32 upcast lives only inside the
-    # log-sum-exp
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0].float()
-    nll = torch.mean(lse - gold)
-    loss = nll + cfg.moe_aux_weight * aux[0] + 1e-3 * aux[1]
+    # a VLM's prefix comes first
+    lse, gold = xent_parts(logits[:, -labels.shape[1]:], labels)
+    loss, nll = lm_objective(lse, gold, aux, cfg.moe_aux_weight)
     return loss, (nll, aux)
 
 
-def _step_grads(model, cfg, leaves, batch, n_micro):
-    """(loss, nll, aux, grads) of one batch, the gradients of ``leaves``
-    (the model's parameter tensors, in order); over ``n_micro``
-    micro-batches the gradients accumulate in f32 and everything is
-    averaged."""
+def _split_rows(v, n_micro: int):
+    """``v``'s micro-batches on dim 0; a list (one tensor a position)
+    gives one list a micro-batch."""
+    if isinstance(v, list):
+        return [list(p) for p in zip(*(torch.chunk(x, n_micro, dim=0)
+                                        for x in v))]
+    return torch.chunk(v, n_micro, dim=0)
 
-    def grad_fn(mb):
-        loss, (nll, aux) = lm_loss(model, cfg, mb)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), nll.detach(), aux.detach(), grads
 
+def _accumulate(grad_fn, batch, n_micro):
+    """``grad_fn(batch) -> (loss, nll, aux, grads)`` over ``n_micro``
+    micro-batches of ``batch`` (tensors, or lists of one tensor a
+    position): the gradients accumulate in f32 and everything is
+    averaged.  One micro-batch is ``grad_fn(batch)`` as it is."""
     if n_micro == 1:
         return grad_fn(batch)
-    micro = {k: torch.chunk(v, n_micro, dim=0) for k, v in batch.items()}
+    micro = {k: _split_rows(v, n_micro) for k, v in batch.items()}
     acc = None
     loss = nll = aux = 0.0
     for i in range(n_micro):
@@ -160,6 +178,19 @@ def _step_grads(model, cfg, leaves, batch, n_micro):
         loss, nll, aux = loss + l, nll + nl, aux + a
     inv = 1.0 / n_micro
     return loss * inv, nll * inv, aux * inv, [g * inv for g in acc]
+
+
+def _step_grads(model, cfg, leaves, batch, n_micro):
+    """(loss, nll, aux, grads) of one batch, the gradients of ``leaves``
+    (the model's parameter tensors, in order), over ``n_micro``
+    micro-batches (:func:`_accumulate`)."""
+
+    def grad_fn(mb):
+        loss, (nll, aux) = lm_loss(model, cfg, mb)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), nll.detach(), aux.detach(), grads
+
+    return _accumulate(grad_fn, batch, n_micro)
 
 
 def make_train_step(model, cfg, *, lr_fn, grad_clip: float = 1.0,
@@ -261,7 +292,13 @@ def make_placed_train_step(model, cfg, *, mesh, lr_fn, params=None,
                            shardings=None, grad_clip: float = 1.0,
                            weight_decay: float = 0.1, n_micro: int = 1):
     """``train_step(opt, batch) -> metrics`` over parameters placed on
-    ``mesh`` (ZeRO-3/FSDP style; the module docstring has the schedule).
+    ``mesh`` (the module docstring has both layouts).
+
+    Built under ``mesh_context(mesh)`` the step runs the tensor layout
+    (``train_step.layout == "tensor"``); a family the layout does not
+    cover raises ``NotImplementedError`` there when the mesh's model axis
+    is above 1, and a different ambient mesh raises ``ValueError``.  Built
+    without one it runs the storage schedule (``"storage"``).
 
     ``params`` (name -> tensor or :class:`PlacedTensor`; ``model``'s own
     parameters when None) are placed by ``shardings`` (name ->
@@ -269,30 +306,38 @@ def make_placed_train_step(model, cfg, *, mesh, lr_fn, params=None,
     and ``cfg.rules`` when None) and held as ``train_step.params``; the
     optimiser state is ``adamw_init(train_step.params)``.  ``model`` gives
     the module tree and may be a ``meta`` model: the step runs a ``meta``
-    twin of it with each position's gathered parameters bound in.
-    ``batch`` holds the global batch (tensors on any device, placed here
-    by ``"batch"`` on dim 0) or placed tensors; its rows must split
-    evenly over the data positions.
+    twin of it, with each position's parameters bound in (storage) or
+    passed as views (tensor).  ``batch`` holds the global batch (tensors
+    on any device, placed here by ``"batch"`` on dim 0) or placed
+    tensors; its rows must split evenly over the data positions.
 
     A mesh whose devices are not all of one type (all CUDA, all host, or
     all ``meta``) raises ``ValueError``.  On a mesh of one position the
     step is the plain one: the same gradients, norm and update, bit for
     bit.  The metrics are :func:`make_train_step`'s: the loss, nll and
     aux terms averaged over the data positions, the global grad norm.
+    ``train_step.communicate(batch)`` issues (storage) or counts (tensor)
+    the step's collectives alone, for the dry run.
     """
     kinds = {d.type for d in mesh.devices.flat}
     if len(kinds) != 1:
         raise ValueError(f"a placed step needs one device type on the "
                          f"mesh, not {sorted(kinds)}")
+    ambient = current_mesh()
+    if ambient is not None and ambient != mesh:
+        raise ValueError("the ambient mesh is not the step's mesh")
+    tensor = ambient is not None and (TP.model_size(mesh) > 1
+                                      or TP.unported(cfg) is None)
     names = [n for n, _ in model.named_parameters()]
     logical = {n: p.logical for n, p in model.named_parameters()}
     values = dict(model.named_parameters()) if params is None else params
     if shardings is None:
         shardings = specs_for_mesh(logical, values, mesh, cfg.rules)
-    placed = {n: device_put(values[n], shardings[n]) for n in names}
     twin = _meta_twin(model)
-    empty = dict(twin.named_parameters())
     coords = _data_positions(mesh, cfg.rules)
+    layout = (TP.TensorLayout(twin, cfg, mesh, shardings, coords)
+              if tensor else None)
+    placed = {n: device_put(values[n], shardings[n]) for n in names}
     source = coords[0]
     reducer = mesh.devices[source]
 
@@ -311,28 +356,58 @@ def make_placed_train_step(model, cfg, *, mesh, lr_fn, params=None,
             out[k] = v
         return out
 
-    def gathered(coord):
-        """Each parameter whole at the compute position ``coord``."""
-        dev = mesh.devices[coord]
-        at = dict(zip(mesh.axis_names, coord))
-        return {n: gather(placed[n], dev, at=at) for n in names}
-
-    def reduced(parts):
+    def reduced(parts, what="metrics"):
         """The positions' tensors summed onto the first compute position
         and averaged (one position: its tensor as it is)."""
         if len(parts) == 1:
             return parts[0]
-        return collectives.psum(parts, device=reducer) * (1.0 / len(parts))
+        with collectives.part(what):
+            return collectives.psum(parts, device=reducer) * (
+                1.0 / len(parts))
+
+    if layout is not None:
+        step = _tensor_step(twin, cfg, mesh, layout, placed, place_batch,
+                            reduced, source, lr_fn=lr_fn,
+                            grad_clip=grad_clip, weight_decay=weight_decay,
+                            n_micro=n_micro)
+    else:
+        step = _storage_step(twin, cfg, mesh, names, placed, coords,
+                             place_batch, reduced, lr_fn=lr_fn,
+                             grad_clip=grad_clip, weight_decay=weight_decay,
+                             n_micro=n_micro)
+    step.params = placed
+    step.data_positions = coords
+    step.layout = "tensor" if layout is not None else "storage"
+    return step
+
+
+def _storage_step(twin, cfg, mesh, names, placed, coords, place_batch,
+                  reduced, *, lr_fn, grad_clip, weight_decay, n_micro):
+    """The storage schedule (ZeRO-3/FSDP style; the module docstring)."""
+    empty = dict(twin.named_parameters())
+    source = coords[0]
+
+    def gathered(coord):
+        """Each parameter whole at the compute position ``coord``."""
+        dev = mesh.devices[coord]
+        at = dict(zip(mesh.axis_names, coord))
+        with collectives.part("parameters"):
+            return {n: gather(placed[n], dev, at=at) for n in names}
 
     def scattered(grads):
         """Each position's shard of each whole gradient."""
         out = {}
-        for n in names:
-            p = placed[n]
-            out[n] = PlacedTensor(p.sharding, p.shape, grads[n].dtype,
-                                  collectives.scatter(grads[n], p.sharding,
-                                                      source=source))
+        with collectives.part("gradients"):
+            for n in names:
+                p = placed[n]
+                out[n] = PlacedTensor(p.sharding, p.shape, grads[n].dtype,
+                                      collectives.scatter(
+                                          grads[n], p.sharding,
+                                          source=source))
         return out
+
+    def summed(parts):
+        return reduced(parts, "gradients")
 
     def train_step(opt: OptState, batch):
         batch = place_batch(batch)
@@ -350,7 +425,7 @@ def make_placed_train_step(model, cfg, *, mesh, lr_fn, params=None,
                 _bind(twin, empty)
             del whole
         loss, nll, aux = (reduced([r[i] for r in runs]) for i in range(3))
-        grads = {n: reduced([r[3][j] for r in runs])
+        grads = {n: summed([r[3][j] for r in runs])
                  for j, n in enumerate(names)}
         del runs
         with span("optim.update"):
@@ -377,11 +452,173 @@ def make_placed_train_step(model, cfg, *, mesh, lr_fn, params=None,
             gathered(coord)
         for shape in ((), (), (2,)):  # loss, nll, aux
             reduced([blank(shape, torch.float32, c) for c in coords])
-        scattered({n: reduced([blank(placed[n].shape, placed[n].dtype, c)
-                               for c in coords]) for n in names})
+        scattered({n: summed([blank(placed[n].shape, placed[n].dtype, c)
+                              for c in coords]) for n in names})
 
-    train_step.params = placed
-    train_step.data_positions = coords
+    train_step.communicate = communicate
+    return train_step
+
+
+def _tensor_step(twin, cfg, mesh, layout, placed, place_batch, reduced,
+                 source, *, lr_fn, grad_clip, weight_decay, n_micro):
+    """The tensor layout (the module docstring; ``parallel/tensor.py``)."""
+    names = layout.names
+    rows = layout.groups
+    every = [c for row in rows for c in row]
+    n_data, t = len(rows), layout.t
+
+    def shape_of(batch):
+        """(global rows, positions a row, text positions)."""
+        b, text = batch["tokens"].shape
+        seq = text + (cfg.vlm_patches if cfg.vlm_patches
+                      and "image_embeds" in batch else 0)
+        return b, seq, text
+
+    def group_grads(row, leaves, batch):
+        """(loss, nll, aux, {coord: {name: gradient}}) of one data index's
+        positions: the forward and backward over its rows, over
+        ``n_micro`` micro-batches (:func:`_accumulate`)."""
+        b, seq, _ = shape_of(batch)
+        views = [layout.view(leaves[c], c) for c in row]
+        group = TP.Group(layout, row, views, batch=b, seq=seq)
+        flat = [leaves[c][n] for c in row for n in names]
+
+        def grad_fn(mb):
+            # the backward's recompute inside too: it resolves the same
+            # activations at their global sizes, once
+            with activation_context(layout.sizes(b, seq), cfg.rules):
+                logits, aux = twin.apply_tensor(
+                    group, mb["tokens"], image_embeds=mb.get("image_embeds"))
+                loss, nll = group.loss(logits, mb["labels"], aux)
+                grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(flat, grads)]
+            return loss.detach(), nll.detach(), aux.detach(), grads
+
+        parts = {k: [v.shards[c] for c in row] for k, v in batch.items()}
+        loss, nll, aux, grads = _accumulate(grad_fn, parts, n_micro)
+        k = len(names)
+        return loss, nll, aux, {c: dict(zip(names, grads[i * k:(i + 1) * k]))
+                                for i, c in enumerate(row)}
+
+    def peers(name):
+        """The groups of positions a gradient of ``name`` is summed over:
+        the data positions of each model index for a split leaf, every
+        position for a leaf the model axis does not split."""
+        if layout.model_dim[name] is None:
+            return [every]
+        return [[row[m] for row in rows] for m in range(t)]
+
+    def reduce_grads(grads):
+        """Each position's gradient of each leaf summed over its peers,
+        averaged over the data positions; ``grads`` is emptied leaf by
+        leaf, so one leaf's parts at most are held twice."""
+        out = {c: {} for c in every}
+        for n in names:
+            for cs in peers(n):
+                g = PositionGroup(mesh, cs, part="gradients")
+                summed = collectives.all_reduce(g, [grads[c].pop(n)
+                                                    for c in cs])
+                for c, x in zip(cs, summed):
+                    out[c][n] = x * (1.0 / n_data) if n_data > 1 else x
+        return out
+
+    def owned(coord):
+        """The leaves whose gradient norm ``coord`` counts: each distinct
+        shard once (data index 0; the first position for unsplit
+        leaves)."""
+        first = every[0] == coord
+        lead = coord in rows[0]
+        return [n for n in names
+                if (layout.model_dim[n] is None and first)
+                or (layout.model_dim[n] is not None and lead)]
+
+    def blocks(grads):
+        """Each position's stored block of each gradient, as placed
+        tensors shaped like the parameters' storage."""
+        out = {}
+        for n in names:
+            p = placed[n]
+            shards = np.empty(p.shards.shape, dtype=object)
+            for c in np.ndindex(p.shards.shape):
+                g = grads[c][n]
+                if layout.other[n]:
+                    sl = list(p.sharding.slices(tuple(p.shape), c))
+                    if layout.model_dim[n] is not None:
+                        sl[layout.model_dim[n]] = slice(None)
+                    g = g[tuple(sl)]
+                shards[c] = g
+            out[n] = PlacedTensor(p.sharding, p.shape, shards.flat[0].dtype,
+                                  shards)
+        return out
+
+    def train_step(opt: OptState, batch):
+        batch = place_batch(batch)
+        with mesh_context(mesh):
+            leaves = {c: layout.leaves(placed, c) for c in every}
+            runs = [group_grads(row, leaves, batch) for row in rows]
+            del leaves
+            loss, nll, aux = (reduced([r[i] for r in runs])
+                              for i in range(3))
+            grads = {c: g for r in runs for c, g in r[3].items()}
+            del runs
+            with span("optim.update"):
+                grads = reduce_grads(grads)
+                norm = PositionGroup(mesh, every, part="gradients")
+                partial = []
+                for c in every:
+                    mine = {n: grads[c][n] for n in owned(c)}
+                    partial.append(sum_of_squares(mine) if mine else
+                                   torch.zeros((), dtype=torch.float32,
+                                               device=mesh.devices[c]))
+                gn = [torch.sqrt(x) for x in
+                      collectives.all_reduce(norm, partial)]
+                for i, c in enumerate(every):
+                    grads[c], _ = clip_by_global_norm(grads[c], grad_clip,
+                                                      norm=gn[i])
+                lr = lr_fn(opt.count.shard(source))
+                sliced = blocks(grads)
+                del grads
+                adamw_update(sliced, opt, placed, lr=lr,
+                             weight_decay=weight_decay)
+        return {"loss": loss, "nll": nll, "grad_norm": gn[0], "lr": lr,
+                "aux_load": aux[0], "aux_z": aux[1]}
+
+    def communicate(batch):
+        """The step's collectives counted, not run (the dry run's: at 256
+        ``meta`` positions running them takes minutes): each data
+        index's activations (``TensorLayout.activation_notes``), the
+        metrics' sums, each leaf's gradient sum over its peers and the
+        norm's -- what a step records, note for note.  Parameters split
+        over another mesh axis than the model axis are gathered as the
+        step gathers them."""
+        batch = place_batch(batch)
+        b, seq, text = shape_of(batch)
+        if any(layout.other.values()):
+            for c in every:
+                layout.leaves(placed, c)
+        seqshard = layout.seqshard(b, seq)
+        notes = layout.activation_notes(b // n_data // n_micro, seq, text,
+                                        seqshard)
+        collectives.record_notes(notes * (n_data * n_micro))
+
+        def blank(shape, c):
+            return torch.empty(shape, dtype=torch.float32,
+                               device=mesh.devices[c])
+
+        for shape in ((), (), (2,)):  # loss, nll, aux
+            reduced([blank(shape, row[0]) for row in rows])
+        grad_notes = []
+        for n in names:
+            for cs in peers(n):
+                if len(cs) > 1:
+                    grad_notes.append(Note("all-reduce",
+                                           layout.grad_bytes(n), len(cs),
+                                           "gradients"))
+        if len(every) > 1:
+            grad_notes.append(Note("all-reduce", 4, len(every), "gradients"))
+        collectives.record_notes(grad_notes)
+
     train_step.communicate = communicate
     return train_step
 

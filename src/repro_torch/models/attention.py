@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch.launch.platform import resolve_device
 from repro_torch.models.layers import ParamInit, apply_rope, product, span
+from repro_torch.parallel.sharding import shard
 
 __all__ = ["Attention", "attn_init", "gqa_attention", "local_attention",
            "decode_attention", "attn_apply", "attn_decode", "init_kv_cache"]
@@ -40,12 +41,15 @@ __all__ = ["Attention", "attn_init", "gqa_attention", "local_attention",
 _NEG = -1e30
 
 
-def _mask_pad_heads(o, n_valid):
+def _mask_pad_heads(o, n_valid, offset=0):
     """Zero the outputs of padded attention heads (config
-    ``pad_heads_to``), so the padded model computes the unpadded one."""
-    if n_valid is None or n_valid >= o.shape[-2]:
+    ``pad_heads_to``), so the padded model computes the unpadded one.
+    ``o``'s heads are the global heads ``offset, offset + 1, ...`` (a
+    position's part of them under the tensor layout)."""
+    if n_valid is None or n_valid >= offset + o.shape[-2]:
         return o
-    mask = (torch.arange(o.shape[-2], device=o.device) < n_valid).to(o.dtype)
+    heads = torch.arange(offset, offset + o.shape[-2], device=o.device)
+    mask = (heads < n_valid).to(o.dtype)
     return o * mask[..., :, None]
 
 
@@ -93,7 +97,7 @@ def _repeat_kv(k, n_heads, compute_dtype):
     if G > 1:
         k = k[:, :, :, None, :].expand(B, S, Hkv, G, D).reshape(
             B, S, Hkv * G, D)
-    return k
+    return shard(k, "batch", None, "heads", None)
 
 
 def _mask_block(pq, pk, causal, window):
@@ -399,7 +403,12 @@ def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
     A self-attention layer with a window takes the two-block
     :func:`local_attention` (``use_local_path``, the default), else
     ``gqa_attention``'s masked path.  Cross-attention is bidirectional,
-    and no rotary embedding touches its queries or keys."""
+    and no rotary embedding touches its queries or keys.
+
+    ``p`` may be a position's view under the tensor layout
+    (``parallel/tensor.py``): its own query and KV heads, the first of them
+    global head ``p.head_offset``; the head counts come from its weights.
+    """
     B, S, E = x.shape
     q = _proj(x, p.wq, p.bq, compute_dtype)
     src = x if kv is None else kv
@@ -408,9 +417,9 @@ def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
     if rope_on and kv is None:
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-    q = q.to(compute_dtype)
-    k = k.to(compute_dtype)
-    v = v.to(compute_dtype)
+    q = shard(q.to(compute_dtype), "batch", "seq", "heads", None)
+    k = shard(k.to(compute_dtype), "batch", "seq", "kv_heads", None)
+    v = shard(v.to(compute_dtype), "batch", "seq", "kv_heads", None)
     if pos_q is None:
         pos_q = torch.arange(S, device=x.device)
     if pos_k is None:
@@ -423,13 +432,15 @@ def attn_apply(p: Attention, x, sin, cos, *, causal=True, window=None,
                           causal=causal and kv is None, window=window,
                           kv_len=kv_len, q_chunk=q_chunk, kv_chunk=kv_chunk,
                           scale=scale, compute_dtype=compute_dtype)
-    o = _mask_pad_heads(o, n_valid_heads)
+    o = shard(o, "batch", "seq", "heads", None)
+    o = _mask_pad_heads(o, n_valid_heads, getattr(p, "head_offset", 0))
     return _out_proj(p, o, compute_dtype).to(x.dtype), (k, v)
 
 
 def _out_proj(p: Attention, o, compute_dtype):
     """(B, S, H, hd) -> (B, S, E): the out-projection and its bias (a
-    ``residual`` product)."""
+    ``residual`` product); on a view, its heads' rows of ``wo``, and no
+    bias (the layout adds it once, after the join)."""
     B, S, H, hd = o.shape
     o = o.to(compute_dtype).reshape(B, S, H * hd)
     w = p.wo.to(compute_dtype).reshape(H * hd, -1)

@@ -35,10 +35,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import shard
+
 __all__ = [
     "ParamInit", "dense", "rmsnorm", "layernorm", "MLP", "mlp_init",
     "mlp_apply", "embed_init", "rope", "apply_rope", "span",
     "abstract_params", "product", "product_tag", "period_end",
+    "xent_parts", "lm_objective",
 ]
 
 
@@ -118,6 +121,22 @@ def abstract_params(module: nn.Module):
     params = dict(module.named_parameters())
     return ({n: p.detach() for n, p in params.items()},
             {n: p.logical for n, p in params.items()})
+
+
+def xent_parts(logits, labels):
+    """(log-sum-exp, gold logit) of each scored position, both f32: the
+    streaming cross entropy ``lse - gold``, the f32 upcast living only
+    inside the log-sum-exp.  ``labels`` are int64."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0].float()
+    return lse, gold
+
+
+def lm_objective(lse, gold, aux, moe_aux_weight: float):
+    """(loss, nll): the mean cross entropy and the MoE layers' load and z
+    terms (``aux``), as ``launch.steps.lm_loss`` weighs them."""
+    nll = torch.mean(lse - gold)
+    return nll + moe_aux_weight * aux[0] + 1e-3 * aux[1], nll
 
 
 def span(name: str):
@@ -258,13 +277,17 @@ def mlp_init(pi: ParamInit, d_model: int, d_ff: int, act: str = "silu",
 
 
 def mlp_apply(p: MLP, x, act: str = "silu", compute_dtype=torch.bfloat16):
+    """The gated (or plain) MLP.  ``p`` may be a position's view under the
+    tensor layout: its columns of ``wi``/``wg`` and rows of ``wo``, whose
+    output is then that position's partial sum."""
     a = _ACTS[act]
     h = dense(x, p.wi, compute_dtype)
     if p.wg is not None:
         h = a(dense(x, p.wg, compute_dtype)) * h
     else:
         h = a(h)
-    return dense(h.to(compute_dtype), p.wo, compute_dtype, residual=True)
+    h = shard(h.to(compute_dtype), "batch", "seq", "mlp")
+    return dense(h, p.wo, compute_dtype, residual=True)
 
 
 def embed_init(pi: ParamInit, vocab: int, d_model: int) -> nn.Parameter:

@@ -36,10 +36,21 @@ JAX package's less the leading ``"stack"`` axis of a period-stacked leaf,
 which has no counterpart in per-layer parameters (``RULES["stack"]`` is
 None, so it only ever adds a replicated dimension; ``convert.py`` puts it
 back).  ``abstract_params`` gives shapes and axes on the ``meta`` device,
-``cache_logical`` the cache's axes.  The JAX package's ``shard(...)``
-activation constraints are dropped (``parallel.sharding.shard`` is the
-identity): the port's placed step runs whole layers at one position a
-data index.
+``cache_logical`` the cache's axes.  The model code calls
+``parallel.sharding.shard`` where the JAX package does (the attention's
+q/k/v and output, the MLP's hidden layer, the residual stream as
+``"seq_res"``, the logits as ``"vocab"``): under an ambient mesh it
+resolves the activation's spec and logs its fallbacks, and returns the
+tensor.  The layout itself is :meth:`StackedLM.apply_tensor`, the
+training forward of the attention-and-MLP decoders over the positions of
+one data index (``parallel/tensor.py``'s ``Group``): each position runs
+its part of every product on its view of the parameters, the residual
+stream is joined after each sublayer (all-reduce, or with ``seqshard``
+the sequence split and reduce-scatter/all-gather pairs around each
+sublayer), and the embedding and logits are vocab-parallel.  Under an
+ambient mesh with a model axis above 1 the families and layers without a
+layout yet (MoE, Mamba-2, RG-LRU, windowed attention) and prefill and
+decode raise ``NotImplementedError`` (``tensor.check_scope``).
 """
 from __future__ import annotations
 
@@ -55,6 +66,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
+    set_checkpoint_early_stop,
 )
 
 from repro_torch.launch.platform import resolve_device
@@ -63,6 +75,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SSM
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel import tensor as TP
 
 __all__ = ["LayerSpec", "ArchConfig", "StackedLM", "_remat_policy"]
 
@@ -513,7 +527,7 @@ class StackedLM(nn.Module):
         if c.vlm_patches and extra is not None:
             # the image prefix: patch embeddings before the text positions
             x = torch.cat([extra.to(c.compute_dtype), x], dim=1)
-        return x
+        return SH.shard(x, "batch", "seq_res", "embed", rules=c.rules)
 
     def _logits(self, x):
         """Logits stay in the compute dtype; the loss upcasts inside its
@@ -526,7 +540,8 @@ class StackedLM(nn.Module):
             if c.logit_softcap:
                 logits = (torch.tanh(logits / c.logit_softcap)
                           * c.logit_softcap)
-            return logits.to(c.compute_dtype)
+            return SH.shard(logits.to(c.compute_dtype), "batch", "seq",
+                            "vocab", rules=c.rules)
 
     # ------------------------------------------------------------------
     # modes
@@ -539,6 +554,12 @@ class StackedLM(nn.Module):
         if c.enc_dec:
             raise ValueError(f"{c.name} is an encoder-decoder: build it "
                              "as repro_torch.models.whisper.WhisperED")
+        TP.check_scope(c)
+        with SH.activation_context(rules=c.rules):
+            return self._train_forward(tokens, image_embeds)
+
+    def _train_forward(self, tokens, image_embeds):
+        c = self.cfg
         x = self._embed(tokens, image_embeds)
         S = x.shape[1]
         sin, cos = L.rope(torch.arange(S, device=x.device), c.hd,
@@ -549,6 +570,7 @@ class StackedLM(nn.Module):
             for j, (spec, lp) in enumerate(zip(c.pattern, layers)):
                 h, _, a = self._slot_apply(spec, lp, h, sin, cos,
                                            last=j == n - 1)
+                h = SH.shard(h, "batch", "seq_res", "embed", rules=c.rules)
                 aux = aux + a
             return h, aux
 
@@ -560,6 +582,80 @@ class StackedLM(nn.Module):
             x, _, a = self._slot_apply(spec, lp, x, sin, cos)
             aux = aux + a
         return self._logits(x), aux
+
+    # ------------------------------------------------------------------
+    # the training forward under the tensor layout
+    # ------------------------------------------------------------------
+    def apply_tensor(self, group, tokens, *, image_embeds=None):
+        """:meth:`apply` over the positions of one data index under the
+        tensor layout: ``group`` is a ``parallel.tensor.Group`` (the
+        positions along the model axis and their views of the parameters;
+        this module gives the structure only and may live on ``meta``),
+        ``tokens`` and ``image_embeds`` one tensor a position.  Returns
+        (each position's logits over its vocabulary rows, aux (2,) f32).
+
+        A remat period takes the positions' residuals and runs under the
+        config's policy; the recompute runs the whole period again (no
+        early stop), so it issues the period's collectives once more,
+        which the dry run counts."""
+        c = self.cfg
+        TP.check_scope(c)
+        xs = group.embed(tokens, image_embeds)
+        S = xs[0].shape[1] * (group.size if group.seqshard else 1)
+        rope = [L.rope(torch.arange(S, device=d), c.hd, c.rope_theta)
+                for d in group.devices]
+        n, T = len(c.pattern), group.size
+
+        def period(*args):
+            hs, aux, first = list(args[:T]), args[T], args[T + 1]
+            for j, spec in enumerate(c.pattern):
+                hs = self._slot_tensor(spec, group, first + j, hs, rope,
+                                       last=j == n - 1)
+            return (*hs, aux)
+
+        period = _remat_wrap(period, c.remat)
+        aux = torch.zeros((2,), dtype=torch.float32,
+                          device=group.devices[0])
+        with set_checkpoint_early_stop(False):
+            for i in range(c.n_periods):
+                out = period(*xs, aux, i * n)
+                xs, aux = list(out[:T]), out[T]
+        for k, spec in enumerate(c.tail_specs):
+            xs = self._slot_tensor(spec, group, c.n_periods * n + k, xs,
+                                   rope)
+        return group.logits(self._norm, xs), aux
+
+    def _slot_tensor(self, spec: LayerSpec, group, idx: int, xs, rope, *,
+                     last=False):
+        """Layer ``idx`` at every position of ``group``: each sublayer's
+        input gathered (``seqshard``), its part computed on the position's
+        view, joined into the residual."""
+        c = self.cfg
+        cd = c.compute_dtype
+        views = [v.layers[idx] for v in group.views]
+        nvh = c.n_heads if c.hq_padded != c.n_heads else None
+        with L.period_end(last and not spec.mlp):
+            hs = group.to_mixer([self._norm(v.ln1, x)
+                                 for v, x in zip(views, xs)])
+            os = [A.attn_apply(v.attn, h, sin, cos, causal=True,
+                               window=spec.window, q_chunk=c.kv_chunk,
+                               kv_chunk=c.kv_chunk, compute_dtype=cd,
+                               rope_on=spec.rope, n_valid_heads=nvh)[0]
+                  for v, h, (sin, cos) in zip(views, hs, rope)]
+            os = group.join(os, group.split["attn"])
+            if views[0].attn_bo is not None:
+                os = [o + v.attn_bo.to(o.dtype) for o, v in zip(os, views)]
+            xs = [x + o for x, o in zip(xs, os)]
+        if spec.mlp:
+            with L.period_end(last):
+                hs = group.to_mixer([self._norm(v.ln2, x)
+                                     for v, x in zip(views, xs)])
+                os = [L.mlp_apply(v.ffn, h, act=c.act, compute_dtype=cd)
+                      for v, h in zip(views, hs)]
+                os = group.join(os, group.split["mlp"])
+                xs = [x + o.to(x.dtype) for x, o in zip(xs, os)]
+        return [SH.shard(x, "batch", "seq_res", "embed", rules=c.rules)
+                for x in xs]
 
     @torch.no_grad()
     def prefill(self, tokens, *, image_embeds=None, max_len=None):
@@ -581,6 +677,7 @@ class StackedLM(nn.Module):
         if c.enc_dec:
             raise ValueError(f"{c.name} is an encoder-decoder: build it "
                              "as repro_torch.models.whisper.WhisperED")
+        TP.check_scope(c, serving=True)
         x = self._embed(tokens, image_embeds)
         S = x.shape[1]
         max_len = max(max_len or 0, S + 1)
@@ -600,6 +697,7 @@ class StackedLM(nn.Module):
         attention caches are written in place; the returned dict holds
         them and the recurrent states and MoE counts of this step."""
         c = self.cfg
+        TP.check_scope(c, serving=True)
         pos = torch.as_tensor(pos, device=self.device)
         x = self._embed(tokens)
         sin, cos = L.rope(pos[:, None], c.hd, c.rope_theta)

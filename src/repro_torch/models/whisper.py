@@ -35,6 +35,7 @@ from repro_torch.launch.platform import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ArchConfig, Norm, _remat_wrap
+from repro_torch.parallel import tensor as TP
 
 __all__ = ["WhisperED"]
 
@@ -183,7 +184,10 @@ class WhisperED(nn.Module):
 
     def apply(self, tokens, *, frames):
         """Training forward: (B, S) tokens and (B, F, d_model) frames ->
-        (logits (B, S, V) f32, aux (2,) zeros)."""
+        (logits (B, S, V) f32, aux (2,) zeros).  Under an ambient mesh
+        with a model axis above 1 it raises ``NotImplementedError``: its
+        layout is a later slice."""
+        TP.check_scope(self.cfg)
         enc = self.encode(frames)
         logits, _ = self._dec_body(tokens, enc)
         return logits, torch.zeros((2,), dtype=torch.float32,
@@ -195,6 +199,7 @@ class WhisperED(nn.Module):
         (logits (B, 1, V) f32 at the last position, the cache).
         ``max_len`` (at least the prompt + 1) sizes the self-attention
         cache."""
+        TP.check_scope(self.cfg, serving=True)
         max_len = max(max_len or 0, tokens.shape[1] + 1)
         enc = self.encode(frames)
         logits, cache = self._dec_body(tokens, enc, collect_cache=True,
@@ -208,6 +213,7 @@ class WhisperED(nn.Module):
         length -> (logits (B, 1, V) f32, the cache).  The self-attention
         cache is written in place; the cross-attention's is read."""
         c = self.cfg
+        TP.check_scope(c, serving=True)
         cd = c.compute_dtype
         pos = torch.as_tensor(pos, device=self.device)
         x = nn.functional.embedding(tokens, self.dec_embed).to(cd)

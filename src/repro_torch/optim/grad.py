@@ -9,15 +9,25 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["clip_by_global_norm", "compress_int8", "decompress_int8",
-           "ef_compress_grads"]
+__all__ = ["clip_by_global_norm", "sum_of_squares", "compress_int8",
+           "decompress_int8", "ef_compress_grads"]
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float):
-    """(clipped grads, global norm in f32)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in grads.values()))
+def sum_of_squares(grads: dict):
+    """The f32 sum of every gradient's squared elements, in the dict's
+    order (the global norm's square)."""
+    return sum(torch.sum(torch.square(g.float())) for g in grads.values())
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: dict, max_norm: float, *, norm=None):
+    """(clipped grads, global norm in f32).  ``norm``, when given, is the
+    global norm of a gradient these tensors are part of (a mesh
+    position's shards: ``launch/steps.py``'s tensor layout sums each
+    distinct shard's :func:`sum_of_squares` across the positions once);
+    the tensors are clipped by it."""
+    gn = torch.sqrt(sum_of_squares(grads)) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-12), max=1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, gn
 

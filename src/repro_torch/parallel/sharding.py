@@ -16,12 +16,21 @@ to it keeps it.  :class:`repro_torch.parallel.placement.NamedSharding`
 pairs a spec with a mesh, and ``placement.device_put`` splits a tensor by
 it.
 
-``shard(x, *logical)`` is the identity.  The JAX package's applies
-``with_sharding_constraint`` under an ambient mesh; the port has no
-ambient mesh (``launch.mesh.mesh_context`` is a null context), and its
-placed train step runs the model on whole parameters at one position a
-data index (``launch.steps.make_placed_train_step``), so there is no
-activation layout to constrain.
+``shard(x, *logical)`` is the JAX package's activation constraint.
+Without an ambient mesh (``launch.mesh.mesh_context``), or on a mesh of
+one position, it is the identity, as there.  Under an ambient mesh it
+resolves the activation's spec as the JAX package's does
+(``logical_to_spec(..., name="act")``), so an activation dimension that
+its mesh axes do not divide lands in :data:`fallback_log`, and returns
+the tensor it was given.  The layout itself is not a property of one
+tensor in the port: the placed train step under an ambient mesh runs each
+mesh position on its own part of every product and joins the parts with
+explicit collectives (``parallel/tensor.py``).  While it does, it names
+the global sizes of the split logical axes (:func:`activation_context`),
+so a position's part resolves as the whole activation would, and each
+distinct activation is resolved once a forward, not once a call.  The
+dry run's train cells run their forward under the ambient mesh, so
+their records carry these ``"act"`` fallbacks as the JAX package's do.
 
 The serving half keys the warm-template registries by
 ``mesh_signature()``, as the JAX package does: backend and visible device
@@ -30,6 +39,7 @@ template recorded on one topology never replays on another.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from collections import deque
@@ -37,10 +47,13 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
+from repro_torch.launch.mesh import current_mesh
+
 logger = logging.getLogger(__name__)
 
 __all__ = [
-    "RULES", "PartitionSpec", "P", "shard", "logical_to_spec",
+    "RULES", "PartitionSpec", "P", "shard", "activation_context",
+    "logical_to_spec",
     "resolve_param_specs", "pad_vocab", "fallback_log", "mesh_signature",
     "mesh_devices", "is_logical",
 ]
@@ -231,10 +244,44 @@ def logical_to_spec(logical: Sequence[str | None],
     return PartitionSpec(*cleaned)
 
 
+_ACT = threading.local()
+
+
+@contextlib.contextmanager
+def activation_context(sizes=None, rules=None):
+    """Inside the block, :func:`shard` on this thread resolves a logical
+    axis named in ``sizes`` (axis -> global size) at that size, whatever
+    the tensor's own dimension (a position's part of the activation), and
+    takes ``rules`` when the call names none.  Each distinct activation
+    (logical axes, resolved shape, mesh and rules) is resolved once a
+    block, as the JAX package resolves a constraint once when it traces
+    a step; the block's later calls for it return at once."""
+    prev = getattr(_ACT, "ctx", None)
+    _ACT.ctx = (dict(sizes or {}), rules, set())
+    try:
+        yield
+    finally:
+        _ACT.ctx = prev
+
+
 def shard(x, *logical: str | None, rules: Mapping[str, Any] | None = None):
     """The activation layout constraint by logical axis names: the
-    identity (the port has no ambient mesh; see the module docstring)."""
-    del logical, rules
+    identity without an ambient mesh or on one position; under one, the
+    spec is resolved (fallbacks logged under ``"act"``) and ``x`` returned
+    (see the module docstring)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return x
+    sizes, ctx_rules, seen = getattr(_ACT, "ctx", None) or ({}, None, None)
+    shape = tuple(sizes.get(ax, d) if ax is not None else d
+                  for ax, d in zip(logical, x.shape))
+    rules = rules if rules is not None else ctx_rules
+    if seen is not None:
+        key = (logical, shape, id(mesh), id(rules))
+        if key in seen:
+            return x
+        seen.add(key)
+    logical_to_spec(logical, shape, mesh, rules=rules, name="act")
     return x
 
 

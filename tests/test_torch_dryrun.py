@@ -133,7 +133,9 @@ def test_run_cell_remat_opt_meters_the_policy(small_shapes, tmp_path, arch):
 
 def test_apply_opts_knobs():
     """``tests/test_launch.py:32``: the JAX test's knobs, the port's other
-    knobs, and a refusal for ``seqshard``, which it cannot honour."""
+    knobs, and ``seqshard``, which maps ``seq_res`` to ``"model"`` in the
+    cell's rules and leaves the process-global ``RULES`` untouched (the
+    JAX package writes ``RULES``)."""
     cfg = dryrun._apply_opts(get_config("glm4-9b"),
                              "headpad16,remat=dots_no_batch,micro=4,"
                              "capacity=1.0,rules.embed=data")
@@ -149,8 +151,55 @@ def test_apply_opts_knobs():
     assert cfg.kv_chunk == 2048
     assert cfg.cache_dtype == torch.float8_e4m3fn
     assert dryrun._apply_opts(cfg, "remat=full").remat == "full"
-    with pytest.raises(NotImplementedError):
-        dryrun._apply_opts(cfg, "seqshard")
+    before = dict(TSH.RULES)
+    seq = dryrun._apply_opts(cfg, "seqshard")
+    assert seq.rules["seq_res"] == "model"
+    assert seq.rules["embed"] == "data"  # the cell's other rules kept
+    assert "seq_res" not in (cfg.rules or {})
+    assert TSH.RULES == before and TSH.RULES["seq_res"] is None
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi-3-vision-4.2b"])
+def test_run_cell_seqshard_moves_the_activations_wire(small_shapes,
+                                                      tmp_path, arch):
+    """A train cell under ``opt="seqshard"``: the same FLOPs and total
+    wire bytes; the activations' all-reduce wire becomes reduce-scatter
+    plus all-gather of equal wire bytes, the gradients' is unchanged."""
+    mesh = make_test_mesh((2, 4))
+    recs = {opt: dryrun.run_cell(arch, "train_4k", "single", smoke=True,
+                                 mesh=mesh, out_dir=str(tmp_path), opt=opt)
+            for opt in (None, "seqshard")}
+    plain, seq = recs[None], recs["seqshard"]
+    assert plain["status"] == seq["status"] == "ok", seq.get("trace")
+    assert plain["layout"] == seq["layout"] == "tensor"
+    assert "layout_reason" not in plain
+    assert plain["cost_raw"]["flops"] == seq["cost_raw"]["flops"]
+    a = plain["collectives_raw"]["by_part"]
+    b = seq["collectives_raw"]["by_part"]
+    assert set(a["activations"]) == {"all-reduce"}
+    assert b["activations"]["reduce-scatter"] == \
+        b["activations"]["all-gather"]
+    assert (b["activations"]["reduce-scatter"]
+            + b["activations"]["all-gather"]
+            == a["activations"]["all-reduce"])
+    assert a["gradients"] == b["gradients"]
+    assert (plain["collectives_raw"]["wire_bytes"]
+            == seq["collectives_raw"]["wire_bytes"])
+    assert seq["metered"]["total"]["wire"] == \
+        seq["collectives_raw"]["wire_bytes"]
+
+
+def test_run_cell_without_a_layout_keeps_the_storage_schedule(
+        small_shapes, tmp_path):
+    """A family the tensor layout does not cover yet keeps the storage
+    schedule in the dry run, and the record names the ROADMAP item that
+    ports its layout."""
+    rec = dryrun.run_cell("mamba2-780m", "train_4k", "single", smoke=True,
+                          mesh=make_test_mesh((2, 4)), out_dir=str(tmp_path))
+    assert rec["status"] == "ok", rec.get("trace")
+    assert rec["layout"] == "storage"
+    assert "ROADMAP.md item" in rec["layout_reason"]
+    assert rec["collectives_raw"]["payload_bytes"]["all-gather"] > 0
 
 
 def test_run_cell_skips_inapplicable(tmp_path):
@@ -179,10 +228,19 @@ def test_dryrun_cli_llama_train_4k_single(tmp_path, capsys):
         assert mem[key] is None and rec["null_reasons"][key]
     assert rec["cost_raw"]["bytes accessed"] is None
     assert rec["null_reasons"]["bytes accessed"]
+    # the train cell runs the tensor layout under the ambient mesh: the
+    # activations' and the gradients' all-reduces, no parameter gathered
+    assert rec["layout"] == "tensor"
     kinds = rec["collectives_raw"]["payload_bytes"]
-    assert kinds["all-gather"] > 0 and kinds["all-reduce"] > 0
-    assert kinds["reduce-scatter"] == 0
+    assert kinds["all-reduce"] > 0
+    assert kinds["all-gather"] == kinds["reduce-scatter"] == 0
+    assert kinds["collective-permute"] == 0
+    parts = rec["collectives_raw"]["by_part"]
+    assert set(parts) == {"activations", "gradients", "loss", "metrics"}
     assert {(a, d) for _, a, d, _ in rec["fallbacks"]} == {("kv_heads", 8)}
+    # the forward ran under the ambient mesh: the activations' KV heads
+    # fall back as the parameters' do, logged under "act" as in JAX
+    assert ["act", "kv_heads", 8, "model"] in rec["fallbacks"]
     # memory is the placement's: f32 parameters and two moments split 16
     # ways where they divide, the rest whole at every position
     cells = all_shardings("llama3.2-1b", "train_4k",

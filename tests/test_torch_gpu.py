@@ -1127,6 +1127,46 @@ def test_lm_placed_step_on_card_matches_one_device(cuda, shape):
                                        rtol=5e-3)
 
 
+@pytest.mark.parametrize("seqshard", [False, True])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_lm_tensor_layout_on_card_matches_the_host(cuda, shape, seqshard):
+    """The tensor layout (the placed step under ``mesh_context``) at smoke
+    width and f32 compute on the card named at 4 positions, against the
+    same layout on the host named at 4: the losses of 3 steps and the
+    first step's grad norm (before AdamW amplifies the devices' rounding)
+    within rtol 1e-4, every shard on the card."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_test_mesh, mesh_context
+    from repro_torch.launch.steps import make_placed_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_init
+
+    model, cfg, batches = _smoke_llama("cpu")
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    if seqshard:
+        cfg = dataclasses.replace(cfg, rules={**(cfg.rules or {}),
+                                              "seq_res": "model"})
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    for dev in ("cpu", cuda):
+        mesh = make_test_mesh(shape, devices=[dev] * 4)
+        with mesh_context(mesh):
+            step = make_placed_train_step(build_model(cfg, device="meta"),
+                                          cfg, mesh=mesh, params=init,
+                                          lr_fn=lambda s: 1e-3)
+        assert step.layout == "tensor"
+        opt = adamw_init(step.params)
+        runs[str(dev)] = [step(opt, b) for b in batches]
+        assert all(s.device == torch.device(dev)
+                   for p in step.params.values() for s in p.shards.flat)
+    host, card = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose([float(m["loss"]) for m in card],
+                               [float(m["loss"]) for m in host], rtol=1e-4)
+    np.testing.assert_allclose(float(card[0]["grad_norm"]),
+                               float(host[0]["grad_norm"]), rtol=1e-4)
+
+
 def test_lm_placement_on_card_restores_and_remeshes(cuda):
     """A checkpoint written with no mesh restores placed on the card's
     (2, 2) mesh, and ``elastic_remesh`` moves it to (1, 4) and (4, 1), bit

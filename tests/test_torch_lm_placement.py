@@ -47,6 +47,7 @@ from repro_torch.launch.mesh import (  # noqa: E402
     make_mesh,
     make_production_mesh,
     make_test_mesh,
+    mesh_context,
 )
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.registry import build_model, get_model  # noqa: E402
@@ -264,8 +265,45 @@ def test_fallback_log_bounded_and_threadsafe():
 
 
 def test_shard_is_the_identity():
-    x = torch.randn(4, 8)
-    assert TSH.shard(x, "batch", "embed") is x
+    """Without an ambient mesh ``shard`` returns its tensor and resolves
+    nothing; under one it still returns the tensor (the layout is the
+    placed step's), and a dimension the mesh axes do not divide lands in
+    the fallback log under ``"act"``, as the JAX package's does."""
+    x = torch.randn(4, 8, 6)  # 6 heads do not split 4 ways
+    TSH.fallback_log.clear()
+    assert TSH.shard(x, "batch", "seq", "heads") is x
+    assert len(TSH.fallback_log) == 0
+    mesh = make_test_mesh((2, 4), devices=["cpu"] * 8)
+    with mesh_context(mesh):
+        assert TSH.shard(x, "batch", "seq", "heads") is x
+    assert [(n, a, d, m) for n, a, d, m in TSH.fallback_log] == [
+        ("act", "heads", 6, "model")]
+    TSH.fallback_log.clear()
+
+
+def test_shard_resolves_each_activation_once_a_block():
+    """Inside ``activation_context`` an activation is resolved (and its
+    fallback logged) once, as the JAX package resolves a constraint once
+    a trace: the block's later calls return at once; a new block, global
+    sizes or another shape resolve again."""
+    x = torch.randn(4, 8, 6)
+    mesh = make_test_mesh((2, 4), devices=["cpu"] * 8)
+    TSH.fallback_log.clear()
+    with mesh_context(mesh):
+        with TSH.activation_context():
+            for _ in range(3):
+                assert TSH.shard(x, "batch", "seq", "heads") is x
+            assert len(TSH.fallback_log) == 1
+            TSH.shard(torch.randn(4, 8, 10), "batch", "seq", "heads")
+            assert len(TSH.fallback_log) == 2
+        with TSH.activation_context({"heads": 12}):
+            # a position's 6 of 12 heads: 12 divides, nothing logged
+            TSH.shard(x, "batch", "seq", "heads")
+            assert len(TSH.fallback_log) == 2
+        with TSH.activation_context():
+            TSH.shard(x, "batch", "seq", "heads")
+    assert [d for _, _, d, _ in TSH.fallback_log] == [6, 10, 6]
+    TSH.fallback_log.clear()
 
 
 def test_elastic_remesh_roundtrip():
@@ -434,9 +472,10 @@ def test_placed_step_loss_equals_the_jax_step_f32(jax_f32_step, shape):
 
 
 def test_placed_step_is_storage_sharding_not_tensor_parallel():
-    """The deliberate difference from the JAX package's GSPMD step: the
-    model axis shards the parameters' and moments' storage and the
-    update, not the products.  Each data index's compute position gathers
+    """Without an ambient mesh (``mesh_context``; under one the step runs
+    the tensor layout, ``tests/test_torch_lm_tensor.py``) the model axis
+    shards the parameters' and moments' storage and the update, not the
+    products.  Each data index's compute position gathers
     every split parameter whole (all-gather outputs are whole parameters)
     and runs the unsharded model; the gradients are summed over the data
     positions once (all-reduce) and sent out as shards
@@ -446,6 +485,7 @@ def test_placed_step_is_storage_sharding_not_tensor_parallel():
     step = TS.make_placed_train_step(model, cfg, mesh=mesh, params=params,
                                      lr_fn=lambda s: 1e-3)
     opt = adamw_init(step.params)
+    assert step.layout == "storage"
     with collectives.record_collectives() as notes:
         step(opt, _batches(cfg, steps=1)[0])
     whole = {p.numel() * p.element_size() for p in params.values()}

@@ -103,6 +103,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _jax_cpu_dots(monkeypatch):
+    """The JAX package's CPU products: importing its ``launch/dryrun.py``
+    (as ``tests/test_launch.py`` does in the same process) sets
+    ``REPRO_STRICT_BF16_DOTS=1`` for the TPU-faithful lowering, which
+    turns its norms' sums into dots and changes the residuals it keeps."""
+    monkeypatch.delenv("REPRO_STRICT_BF16_DOTS", raising=False)
+
+
 def _batch(cfg, *, b=B, s=S, seed=1):
     """Seeded tokens and labels, and the config's extras, from numpy."""
     rng = np.random.default_rng(seed)

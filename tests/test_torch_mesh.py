@@ -28,8 +28,9 @@ from _torch_parity import assert_topk_parity  # noqa: E402
 from repro_torch.core import balltree as tbt  # noqa: E402
 from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.kernels import stacked_sweep as tss  # noqa: E402
-from repro_torch.launch.mesh import (DeviceMesh, make_mesh,  # noqa: E402
-                                     make_serving_mesh, mesh_context)
+from repro_torch.launch.mesh import (DeviceMesh, current_mesh,  # noqa: E402
+                                     make_mesh, make_serving_mesh,
+                                     mesh_context)
 from repro_torch.parallel import (all_gather, mesh_devices,  # noqa: E402
                                   mesh_signature, per_position, pmin, psum)
 from repro_torch.serve.dispatch import DispatchPolicy  # noqa: E402
@@ -331,8 +332,10 @@ def test_make_mesh_names_devices():
         make_mesh((2, 2), ("a", "b"), devices=["cpu"] * 3)
     with pytest.raises(ValueError, match="axis"):
         mesh.axis_devices("model")
-    with mesh_context(mesh) as ambient:  # nothing to set: a no-op
-        assert ambient is None
+    assert current_mesh() is None
+    with mesh_context(mesh) as ambient:  # the ambient mesh of this thread
+        assert ambient is mesh and current_mesh() is mesh
+    assert current_mesh() is None
 
 
 def test_serving_mesh_needs_the_cuda_devices(monkeypatch):
